@@ -1,0 +1,94 @@
+"""The PyTorch port stands alone: no JAX, nothing of the JAX package, and
+the card unless the CPU is asked for."""
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+SRC = Path(__file__).resolve().parent.parent / "src"
+PORT = SRC / "pd_fusion_torch"
+
+_IMPORT_ALL = f"""
+import importlib, pkgutil, sys
+sys.path.insert(0, {str(SRC)!r})
+import pd_fusion_torch
+names = [m.name for m in pkgutil.walk_packages(pd_fusion_torch.__path__, "pd_fusion_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "pd_fusion") or m.startswith(("jax.", "jaxlib", "pd_fusion.")))
+print(len(names), bad)
+"""
+
+
+def test_port_imports_without_jax_or_jax_package():
+    # a fresh interpreter: the test workers already hold jax
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL], capture_output=True, text=True, timeout=120,
+        check=True,
+    ).stdout.split(maxsplit=1)
+    assert int(out[0]) >= 30  # every module of the port was imported
+    assert out[1].strip() == "[]"
+
+
+def _imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize(
+    "path", sorted(PORT.rglob("*.py")), ids=lambda p: str(p.relative_to(PORT))
+)
+def test_port_source_imports_no_jax(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "optax", "pd_fusion"), f"{path.name} imports {mod}"
+
+
+def test_get_device_raises_without_cuda_unless_cpu_requested(monkeypatch):
+    from pd_fusion_torch.utils.device import DEVICE_ENV, get_device
+
+    monkeypatch.delenv(DEVICE_ENV, raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        get_device()
+    assert get_device("cpu") == torch.device("cpu")
+    monkeypatch.setenv(DEVICE_ENV, "cpu")
+    assert get_device() == torch.device("cpu")
+
+
+def test_get_device_defaults_to_cuda_when_present(monkeypatch):
+    from pd_fusion_torch.utils.device import DEVICE_ENV, get_device
+
+    monkeypatch.delenv(DEVICE_ENV, raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    assert get_device() == torch.device("cuda")
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+
+
+def test_set_seed_matches_jax_package_host_draws_and_chains_generators():
+    import numpy as np
+
+    from pd_fusion.utils.seed import set_seed as jax_set_seed
+    from pd_fusion_torch.utils.seed import fresh_generator, set_seed
+
+    jax_set_seed(7)
+    want = (np.random.rand(5), __import__("random").random())
+    set_seed(7)
+    got = (np.random.rand(5), __import__("random").random())
+    np.testing.assert_array_equal(want[0], got[0])
+    assert want[1] == got[1]
+
+    set_seed(7)
+    a = [torch.rand(3, generator=fresh_generator()) for _ in range(2)]
+    set_seed(7)
+    b = [torch.rand(3, generator=fresh_generator()) for _ in range(2)]
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert not torch.equal(a[0], a[1])

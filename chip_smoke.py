@@ -3,20 +3,32 @@
 
     python3 chip_smoke.py
 
+    python3 chip_smoke.py --compare-with <path of another attention_pool.cu>
+
 Phases; any failure exits non-zero before the final line:
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build kernel K1 (``csrc/attention_pool.cu``) from the repo's sources
-   with nvcc (set-up time, printed);
+   with nvcc (set-up time and the ``-Xptxas=-v`` report, printed; the
+   report must show no spills); ``--compare-with`` builds that source too,
+   in parallel, with the same flags and the C interface K1 had first
+   (scores, mask, h, pooled, weights, B, L, H, stream);
 3. K1 against its plain PyTorch version on the card, forward and
    gradient (``pd_fusion_torch/ops/attention_pool_checks.py``, the checks
-   the ``cuda``-marked tests run too), at the MIL CV path's shapes (B=16 training step, B=80
-   evaluation width; L=48, H=256), a tail shape (L=13, H=100) and an
-   all-masked bag; then both timed with CUDA events beside the bound:
-   device time from CUDA-graph replays, and time per call with the host
-   work (median of 200 calls after warm-up); the full-width MIL head
-   (``mil_apply``, D=2048) on the card against the same head on the CPU;
-   and a ``torch.profiler`` window over two epochs of the MIL trainer at
-   full width: the device's busy share and its top kernels;
+   the ``cuda``-marked tests run too), at every shape there: the MIL
+   configs' (L=48 at B=16 and 80, L=64, L=72), a staged long bag, tails
+   of H on both the float4 and the scalar path, a bag of one, all-masked
+   bags and an unaligned h; then, at the MIL configs' shapes, K1 and the
+   plain version timed with CUDA events beside the bound and the launch
+   floor (a one-element ``zero_()``): device time from CUDA-graph
+   replays, and time per call with the host work (median of 200 calls
+   after warm-up); K1 and the plain version again on a long bag, which K1
+   stages through two buffers; with ``--compare-with``,
+   that kernel and K1 timed in turns (other, K1, K1, other) at each
+   shape; the full-width MIL head (``mil_apply``, D=2048) on the card
+   against the same head on the CPU; and a ``torch.profiler`` window over
+   two epochs of the MIL trainer at full width: the device's busy share,
+   its top kernels, and K1's backward (torch ops) as a ``record_function``
+   range: its device time and kernel launches;
 4. the ds001907 MIL-attention CV slice at full width through the port's
    CLI (``python -m pd_fusion_torch.cli run --config <abs path>``) on
    seeded synthetic bags (48 subjects x 2 sessions, 48 slices x 2048):
@@ -27,19 +39,24 @@ Phases; any failure exits non-zero before the final line:
    exist, and their PNGs where matplotlib is installed. Then the slice
    runs once more under ``torch.profiler``: K1's summed device time and
    its wrapper's host time against the device's busy time and the wall;
-5. one JSON line with each kernel's launches, error and times, the card
-   line again, then ``{"ok": true, "device": {...}}`` as the last line.
+5. one JSON line with each kernel's launches, error and times (B=16 and
+   B=80, and the launch floor), the card line again, then
+   ``{"ok": true, "device": {...}}`` as the last line.
 
 Needs a CUDA device and the repo around it; it imports nothing of JAX.
 """
+import argparse
+import ctypes
 import importlib.util
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -49,6 +66,12 @@ H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # float32 outside the tensor cores, H100 SXM data sheet
 MIL_CONFIG = ROOT / "configs" / "openneuro_ds001907_resnet2d_mil.yaml"
 N_SUBJECTS, N_SLICES, EMB_DIM = 48, 48, 2048
+# (B, L, H) of the repo's MIL configs: the CV slice's training step and
+# evaluation width (openneuro_ds001907_resnet2d_mil.yaml), the fine-tune
+# (..._mil_ft.yaml: batch 4, 64 slices), the 3-axis bags (..._mil_multi:
+# 3 x 24 slices, batch 16)
+TIMED_SHAPES = [(16, 48, 256), (80, 48, 256), (4, 64, 256), (16, 72, 256)]
+LONG_BAG = (2, 4096, 256)  # no MIL config has such bags; K1 stages them through two buffers
 
 
 def card_line() -> str:
@@ -98,6 +121,63 @@ def time_device_ms(torch, fn, per_graph=20, reps=100) -> float:
     return _median_event_ms(torch, graph.replay, reps) / per_graph
 
 
+def time_in_turns(torch, fns) -> dict:
+    """Device time (``time_device_ms``) of each of ``fns`` (name -> call),
+    timed in turns, in order and then in reverse (a, b, b, a), so that a
+    drift of the card's clock falls on both. -> name -> [ms, ms]."""
+    times = {name: [] for name in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for name in order:
+            times[name].append(time_device_ms(torch, fns[name]))
+    return times
+
+
+def warm_clocks(torch, seconds=0.2):
+    """Keep the card busy for about ``seconds`` so that its clocks are up
+    before a timing (after host-side work the card idles, and the first
+    timing would run on a lowered clock)."""
+    a = torch.randn(2048, 2048, device="cuda")
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(10):
+            a = torch.tanh(a @ a)
+        torch.cuda.synchronize()
+
+
+def launch_floor_ms(torch) -> float:
+    """Device time of the least launch: a one-element ``zero_()``, timed as
+    K1 is (``time_device_ms``)."""
+    x = torch.zeros(1, device="cuda")
+    return time_device_ms(torch, x.zero_)
+
+
+def bind_first_interface(torch, lib_path: Path):
+    """``attention_pool_forward`` of a library with the C interface K1 had
+    first (scores, mask, h, pooled, weights, B, L, H, stream) ->
+    ``run(scores, mask, h, pooled, weights)``."""
+    lib = ctypes.CDLL(str(lib_path))
+    fn = lib.attention_pool_forward
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(scores, mask, h, pooled, weights):
+        B, L = scores.shape
+        err = fn(scores.data_ptr(), mask.data_ptr(), h.data_ptr(), pooled.data_ptr(),
+                 weights.data_ptr(), B, L, h.shape[2], torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{lib_path.name}: launch failed, CUDA error {err}")
+
+    run.lib = lib  # keeps the library loaded
+    return run
+
+
+def check_spills(log: str):
+    """The ``-Xptxas=-v`` report must show 0 bytes of spill stores and loads."""
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)
+    if not spills or any(int(a) or int(b) for a, b in spills):
+        raise RuntimeError(f"the kernels spill or the report has no spill line: {spills}")
+
+
 def pool_bound(B, L, H):
     """Least time on an H100 SXM for one forward: bytes moved (inputs read
     once, outputs written once) over HBM rate vs flops over f32 rate."""
@@ -124,12 +204,34 @@ def check_mil_head(torch, np):
     return float((card.cpu() - cpu).abs().max())
 
 
-def profile_trainer(torch, n=80, epochs=2, top=6):
+K1_BWD_RANGE = "K1 backward (AttentionPool.backward)"
+
+
+def range_device(torch, prof, name):
+    """A ``record_function`` range over all its calls: (calls, device ms,
+    kernel launches) of the kernels its ops and their children launched.
+    The range's own device-side twin of the same name is left out."""
+    def walk(e):
+        own = [k for k in e.kernels if k.name != name]
+        us, n = sum(k.duration for k in own), len(own)
+        for child in e.cpu_children:
+            cu, cn = walk(child)
+            us, n = us + cu, n + cn
+        return us, n
+
+    calls = [e for e in prof.events()
+             if e.name == name and e.device_type == torch.autograd.DeviceType.CPU]
+    walked = [walk(e) for e in calls]
+    return len(calls), sum(w[0] for w in walked) / 1e3, sum(w[1] for w in walked)
+
+
+def profile_trainer(torch, ap, n=80, epochs=2, top=6):
     """Where the MIL trainer's time goes at full width: ``epochs`` epochs of
     ``train_mil_impl`` on ``n`` bags (batch 16, the slice's settings) under
-    ``torch.profiler``, after one warm-up epoch. -> (wall ms, summed device
-    ms, top ops by device time). One stream, so device time / wall is the
-    device's busy share."""
+    ``torch.profiler``, after one warm-up epoch, with K1's backward (torch
+    ops) inside a ``record_function`` range. -> (wall ms, summed device ms,
+    top ops by device time, (backward calls, device ms, kernel launches)).
+    One stream, so device time / wall is the device's busy share."""
     from pd_fusion_torch.nn.mil import mil_init, train_mil_impl
 
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -143,17 +245,28 @@ def profile_trainer(torch, n=80, epochs=2, top=6):
         return train_mil_impl(p0, X, M, y, ones, X, M, y, ones, g, 5e-4, 1.0, 1.0, e, 16, True,
                               0.2, 1e-3, True, True, patience=8)
 
+    backward = ap.AttentionPool.backward
+
+    def ranged_backward(ctx, *grads):
+        with torch.profiler.record_function(K1_BWD_RANGE):
+            return backward(ctx, *grads)
+
     run(1)
     torch.cuda.synchronize()
-    wall_ms, rows = profiled(torch, lambda: run(epochs))
-    on_device = device_rows(torch, rows)
+    ap.AttentionPool.backward = staticmethod(ranged_backward)
+    try:
+        wall_ms, prof = profiled(torch, lambda: run(epochs))
+    finally:
+        ap.AttentionPool.backward = staticmethod(backward)
+    on_device = device_rows(torch, prof.key_averages())
     on_device.sort(key=_dev_ms, reverse=True)
     return (wall_ms, sum(_dev_ms(e) for e in on_device),
-            [(e.key[:70], _dev_ms(e), e.count) for e in on_device[:top]])
+            [(e.key[:70], _dev_ms(e), e.count) for e in on_device[:top]],
+            range_device(torch, prof, K1_BWD_RANGE))
 
 
 def profiled(torch, fn):
-    """``fn()`` under ``torch.profiler`` (host and device) -> (wall ms, key_averages)."""
+    """``fn()`` under ``torch.profiler`` (host and device) -> (wall ms, profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -161,7 +274,7 @@ def profiled(torch, fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    return wall_ms, prof.key_averages()
+    return wall_ms, prof
 
 
 def device_rows(torch, rows):
@@ -197,10 +310,11 @@ def profile_slice(torch, ap, cli, config_path: Path, out_dir: Path):
 
     ap.attention_pool_forward = ranged
     try:
-        wall_ms, rows = profiled(torch, lambda: cli.main(
+        wall_ms, prof = profiled(torch, lambda: cli.main(
             ["run", "--config", str(config_path), "--output-dir", str(out_dir)]))
     finally:
         ap.attention_pool_forward = forward
+    rows = prof.key_averages()
     on_device = device_rows(torch, rows)
     k1 = [e for e in on_device if K1_SYMBOL in e.key]
     host = [e for e in rows if e.key == K1_HOST_RANGE
@@ -286,7 +400,39 @@ def run_slice(np, yaml, ap, cli, tmp: Path):
             "aggregated": on_disk, "config_path": config_path}
 
 
+def compare_kernels(torch, ap, checks, other, floor_ms):
+    """``other`` (a K1 source with the first C interface) and K1, each
+    checked against the plain version, then timed in turns (other, K1, K1,
+    other) at each of ``TIMED_SHAPES``."""
+    rows = {}
+    for B, L, H in TIMED_SHAPES:
+        scores, mask, h = checks.pool_inputs(B, L, H, (0,), seed=98, device="cuda")
+        pooled = torch.empty(B, H, device="cuda")
+        weights = torch.empty(B, L, device="cuda")
+        other(scores, mask, h, pooled, weights)
+        want_p, want_w = ap.attention_pool_reference(scores, mask, h)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(pooled, want_p, atol=checks.POOL_ATOL, rtol=checks.POOL_RTOL)
+        torch.testing.assert_close(weights, want_w, atol=checks.WEIGHTS_ATOL, rtol=0)
+        times = time_in_turns(torch, {
+            "other": lambda: other(scores, mask, h, pooled, weights),
+            "k1": lambda: ap.attention_pool_forward(scores, mask, h)})
+        o, k = (sum(times[n]) / 2 for n in ("other", "k1"))
+        bound = pool_bound(B, L, H)[1][0]
+        rows[(B, L, H)] = {"other_ms": o, "k1_ms": k}
+        print(f"compare B={B} L={L} H={H} (device, in turns other,K1,K1,other): other "
+              f"{times['other'][0]:.6f}/{times['other'][1]:.6f} ms, K1 {times['k1'][0]:.6f}/"
+              f"{times['k1'][1]:.6f} ms; mean other {o:.6f} K1 {k:.6f} (K1/other {k / o:.4f}); "
+              f"bound {bound:.6f} ms, launch floor {floor_ms:.6f} ms")
+    return rows
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
+    parser.add_argument("--compare-with", type=Path, default=None,
+                        help="another attention_pool.cu with K1's first C interface, timed "
+                             "against K1 in turns")
+    args = parser.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -308,44 +454,66 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     get_device()  # sets full-f32 matmuls on the card
 
-    # phase 2: build K1 from the repo's sources
+    # phase 2: build K1 from the repo's sources (and the source to compare
+    # with), one nvcc each, started together
+    sources = [ap.SOURCE] + ([args.compare_with.resolve()] if args.compare_with else [])
     t0 = time.perf_counter()
-    lib = ap.build_library()
-    print(f"build: {lib.relative_to(ROOT)} in {time.perf_counter() - t0:.2f} s")
-    print(lib.with_suffix(".log").read_text().strip())
+    with ThreadPoolExecutor(len(sources)) as pool:
+        libs = list(pool.map(ap.build_library, sources))
+    print(f"build: {', '.join(map(str, libs))} in {time.perf_counter() - t0:.2f} s")
+    for src, lib in zip(sources, libs):
+        log = lib.with_suffix(".log").read_text().strip()
+        print(f"-Xptxas=-v for {src}:\n{log}")
+    check_spills(libs[0].with_suffix(".log").read_text())
 
     # phase 3: kernel against plain on the card, then timed
     max_err = 0.0
-    for i, (B, L, H, masked) in enumerate(checks.SHAPES):
-        err = max(checks.check_forward(B, L, H, masked, seed=10 + i),
-                  checks.check_gradient(B, L, H, masked, seed=10 + i))
-        print(f"pool B={B} L={L} H={H} all-masked={list(masked)}: max abs err {err:.3e} "
-              f"(pooled and gradients atol=rtol={checks.POOL_ATOL}, "
-              f"weights atol={checks.WEIGHTS_ATOL})")
+    for i, (B, L, H, masked, off) in enumerate(checks.SHAPES):
+        err = max(checks.check_forward(B, L, H, masked, seed=10 + i, h_offset=off),
+                  checks.check_gradient(B, L, H, masked, seed=10 + i, h_offset=off))
+        path = ap.launch_config(B, L, H, off % 4 == 0).path
+        print(f"pool B={B} L={L} H={H} all-masked={list(masked)} h offset {4 * off} B "
+              f"({path}): max abs err {err:.3e} (pooled and gradients "
+              f"atol=rtol={checks.POOL_ATOL}, weights atol={checks.WEIGHTS_ATOL})")
         max_err = max(max_err, err)
     head_err = check_mil_head(torch, np)
     print(f"mil_apply D={EMB_DIM} H=256 attn=128 card vs CPU: max abs err {head_err:.3e}")
 
+    warm_clocks(torch)
+    floor_ms = launch_floor_ms(torch)
+    print(f"launch floor (one-element zero_(), device, CUDA graph): {floor_ms:.6f} ms")
     timings = {}
-    for B in (16, 80):
-        scores, mask, h = checks.pool_inputs(B, 48, 256, (0,), seed=99, device="cuda")
+    for B, L, H in TIMED_SHAPES + [LONG_BAG]:
+        scores, mask, h = checks.pool_inputs(B, L, H, (0,), seed=99, device="cuda")
         kernel = lambda: ap.attention_pool_forward(scores, mask, h)  # noqa: E731
         plain = lambda: ap.attention_pool_reference(scores, mask, h)  # noqa: E731
         t = {"kernel_ms": time_device_ms(torch, kernel), "plain_ms": time_device_ms(torch, plain),
              "kernel_call_ms": time_call_ms(torch, kernel),
              "plain_call_ms": time_call_ms(torch, plain)}
-        n_bytes, (t["bound_ms"], t["bound_by"]) = pool_bound(B, 48, 256)
-        timings[B] = t
-        print(f"timing B={B} L=48 H=256 (device, CUDA graph): kernel_ms {t['kernel_ms']:.6f} "
+        n_bytes, (t["bound_ms"], t["bound_by"]) = pool_bound(B, L, H)
+        timings[(B, L, H)] = t
+        print(f"timing B={B} L={L} H={H} (device, CUDA graph): kernel_ms {t['kernel_ms']:.6f} "
               f"plain_ms {t['plain_ms']:.6f} bound_ms {t['bound_ms']:.6f} ({t['bound_by']}) "
-              f"bytes {n_bytes}; per call with host work: kernel {t['kernel_call_ms']:.6f} ms, "
-              f"plain {t['plain_call_ms']:.6f} ms")
+              f"bytes {n_bytes} launch_floor_ms {floor_ms:.6f}; per call with host work: "
+              f"kernel {t['kernel_call_ms']:.6f} ms, plain {t['plain_call_ms']:.6f} ms "
+              f"({ap.launch_config(B, L, H, True)})")
 
-    wall_ms, busy_ms, top = profile_trainer(torch)
+    if args.compare_with:
+        other = bind_first_interface(torch, libs[1])
+        warm_clocks(torch)
+        compare_kernels(torch, ap, checks, other, floor_ms)
+
+    wall_ms, busy_ms, top, (bwd_calls, bwd_ms, bwd_launches) = profile_trainer(torch, ap)
     print(f"trainer profile (2 epochs, 80 bags, D={EMB_DIM}, batch 16): wall {wall_ms:.3f} ms, "
           f"device busy {busy_ms:.3f} ms, busy share {busy_ms / wall_ms:.4f}")
     for name, ms, count in top:
         print(f"  {ms:10.3f} ms  x{count:<5d} {name}")
+    if bwd_calls == 0 or bwd_launches == 0:
+        raise RuntimeError("the trainer profile shows no K1 backward range or no kernel in it")
+    print(f"  K1 backward (torch ops) range: {bwd_calls} calls, device {bwd_ms:.3f} ms "
+          f"({bwd_ms / bwd_calls * 1e3:.3f} us a call, share of device busy "
+          f"{bwd_ms / busy_ms:.4f}), {bwd_launches} kernel launches "
+          f"({bwd_launches / bwd_calls:.1f} a call)")
 
     # phase 4: the ds001907 MIL CV slice at full width through the CLI; then
     # the same slice again under the profiler, for K1's measured part of it
@@ -364,9 +532,9 @@ def main() -> int:
           f"(share {p_busy / p_wall:.4f}); K1 kernels {k1_n}, K1 device {k1_dev:.3f} ms "
           f"(share of device busy {k1_dev / p_busy:.4f}), K1 wrapper host {k1_host:.3f} ms "
           f"(share of wall {k1_host / p_wall:.4f})")
-    t = timings[16]
+    t, t80 = timings[(16, 48, 256)], timings[(80, 48, 256)]
 
-    # phase 5: the record (times at the training step's shape)
+    # phase 5: the record (times at the training step's shape, and at B=80)
     print(json.dumps({"kernels": [{
         "name": "attention_pool",
         "route": "cuda",
@@ -383,6 +551,10 @@ def main() -> int:
         "call_ms": t["kernel_call_ms"],
         "plain_call_ms": t["plain_call_ms"],
         "slice_wall_s": res["wall_s"],
+        "launch_floor_ms": floor_ms,
+        "ms_b80": t80["kernel_ms"],
+        "plain_ms_b80": t80["plain_ms"],
+        "bound_ms_b80": t80["bound_ms"],
     }]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

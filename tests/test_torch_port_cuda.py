@@ -26,14 +26,14 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("B,L,H,all_masked", checks.SHAPES)
-def test_kernel_forward_matches_plain(cuda, B, L, H, all_masked):
-    checks.check_forward(B, L, H, all_masked, seed=B + L + H, device=cuda)
+@pytest.mark.parametrize("B,L,H,all_masked,h_offset", checks.SHAPES)
+def test_kernel_forward_matches_plain(cuda, B, L, H, all_masked, h_offset):
+    checks.check_forward(B, L, H, all_masked, seed=B + L + H, device=cuda, h_offset=h_offset)
 
 
-@pytest.mark.parametrize("B,L,H,all_masked", checks.SHAPES)
-def test_kernel_gradient_matches_autograd_of_plain(cuda, B, L, H, all_masked):
-    checks.check_gradient(B, L, H, all_masked, seed=7, device=cuda)
+@pytest.mark.parametrize("B,L,H,all_masked,h_offset", checks.SHAPES)
+def test_kernel_gradient_matches_autograd_of_plain(cuda, B, L, H, all_masked, h_offset):
+    checks.check_gradient(B, L, H, all_masked, seed=7, device=cuda, h_offset=h_offset)
 
 
 def test_mil_head_on_the_card_matches_the_cpu(cuda):

@@ -39,9 +39,34 @@ Phases; any failure exits non-zero before the final line:
    exist, and their PNGs where matplotlib is installed. Then the slice
    runs once more under ``torch.profiler``: K1's summed device time and
    its wrapper's host time against the device's busy time and the wall;
-5. one JSON line with each kernel's launches, error and times (B=16 and
-   B=80, and the launch floor), the card line again, then
-   ``{"ok": true, "device": {...}}`` as the last line.
+5. the tabular slice (no kernel of its own: torch ops, as the JAX
+   package's XLA programs): the fold-batched trainer
+   (``nn/trainer.py::minibatch_moddrop_impl``) at the bench CV frame's
+   widths (K=5, n=400, 35 features, [64, 32], batch 32, 50 epochs, moddrop
+   0.3, dropout 0.2) on the card and on the CPU with the same explicit
+   draws, and a short ``per_sample`` run, held to
+   ``nn/trainer_checks.py``'s tolerances, and the MLP forward likewise;
+6. the single-split quickstart through the CLI (``run --config <abs
+   path>/configs/quickstart.yaml --synthetic``): its artifacts, then
+   ``evaluate --run-dir`` must give ``results.yaml``'s deterministic
+   scenarios to 1e-6; seed 42's full-observation ROC-AUC is printed beside
+   the reference band, and the mean ROC-AUC over 64 generator chains on the
+   card must lie within 3 standard errors of the JAX package's (one seed's
+   AUC is mostly its initial weights': see ``QUICKSTART_BAND``);
+7. the bench CV frame through the CLI (``--k-fold 5 --model
+   fusion_moddrop``: N=500, the frame of ``bench.py:97-116``): artifacts,
+   6 scenarios, a mean full-observation ROC-AUC > 0.75, K1 launched
+   neither as kernel nor plain, the trainer's wall and steps; its trainer
+   call again for 2 epochs under ``torch.profiler`` (device and host time
+   and kernel launches a step, top device ops); the whole CV once more
+   under the profiler for the device's busy share;
+8. the scaled CV frame (N=5000, K=10, ``bench.py:608-626``) likewise, its
+   busy share from the trainer window (the whole run's profile takes
+   minutes to read back);
+9. a JSON line with each path's wall time, busy share and AUC; one with
+   each kernel's launches, error and times (B=16 and B=80, and the launch
+   floor); the card line again; then ``{"ok": true, "device": {...}}`` as
+   the last line.
 
 Needs a CUDA device and the repo around it; it imports nothing of JAX.
 """
@@ -65,6 +90,20 @@ sys.path.insert(0, str(ROOT / "src"))
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # float32 outside the tensor cores, H100 SXM data sheet
 MIL_CONFIG = ROOT / "configs" / "openneuro_ds001907_resnet2d_mil.yaml"
+QUICKSTART = ROOT / "configs" / "quickstart.yaml"
+EVAL_CONFIG = ROOT / "configs" / "eval_missingness.yaml"
+# the reference's committed quickstart run: full-observation ROC-AUC 0.7121,
+# band 0.12 (tests/test_parity_reference.py:37, 75). The quickstart trains 5
+# full-batch steps, so one seed's AUC is mostly its initial weights': over
+# 400 JAX key chains it is 0.5957 +- 0.0757 (sd), and the band holds for 53%
+# of them (`python tests/test_torch_port_tabular_slice.py 400`, CPU). The
+# check is on the mean over QUICKSTART_DRAWS chains on the card.
+QUICKSTART_BAND = (0.7121, 0.12)
+JAX_QUICKSTART_AUC = (0.5957, 0.0757, 400)  # mean, sd, draws
+QUICKSTART_DRAWS = 64
+# the bench CV frame: the JAX package's run gives 0.8688 (BENCH_r05.json), chance 0.5
+CV_AUC_MIN = 0.75
+DETERMINISTIC_SCENARIOS = ("full_observation", "no_dat", "no_mri", "clinical_only")
 N_SUBJECTS, N_SLICES, EMB_DIM = 48, 48, 2048
 # (B, L, H) of the repo's MIL configs: the CV slice's training step and
 # evaluation width (openneuro_ds001907_resnet2d_mil.yaml), the fine-tune
@@ -378,14 +417,7 @@ def run_slice(np, yaml, ap, cli, tmp: Path):
     expected = ["results_aggregated.yaml", "fold_assignments.csv", "summary_table.csv"]
     expected += [f"results_fold_{i}.yaml" for i in range(1, k + 1)]
     expected += [f"preds_fold_{i}_full_observation.csv" for i in range(1, k + 1)]
-    # the fold-1 plots: their CSV twins always, the PNGs where matplotlib is installed
-    exts = ("csv", "png") if importlib.util.find_spec("matplotlib") else ("csv",)
-    expected += [f"{p}_fold1.{ext}" for p in
-                 ("degradation", "roc_curve", "pr_curve", "calibration", "risk_coverage")
-                 for ext in exts]
-    missing = [f for f in expected if not (out_dir / f).exists()]
-    if missing:
-        raise RuntimeError(f"slice run lacks artifacts: {missing}")
+    require_files(out_dir, expected + plot_files(PLOTS, "_fold1"), "slice run")
     on_disk = yaml.safe_load((out_dir / "results_aggregated.yaml").read_text())
     if len(on_disk) != 7 or set(on_disk) != set(agg):
         raise RuntimeError("results_aggregated.yaml does not hold the 7 scenarios returned")
@@ -398,6 +430,177 @@ def run_slice(np, yaml, ap, cli, tmp: Path):
         raise RuntimeError(f"the slice called the plain pool {launches['plain']} times")
     return {"wall_s": wall, "launches": launches["kernel"], "auc": auc, "k": k,
             "aggregated": on_disk, "config_path": config_path}
+
+
+def plot_files(stems, suffix=""):
+    """The plots' CSV twins always, their PNGs where matplotlib is installed."""
+    exts = ("csv", "png") if importlib.util.find_spec("matplotlib") else ("csv",)
+    return [f"{p}{suffix}.{ext}" for p in stems for ext in exts]
+
+
+PLOTS = ("degradation", "roc_curve", "pr_curve", "calibration", "risk_coverage")
+
+
+def require_files(out_dir: Path, names, what):
+    missing = [f for f in names if not (out_dir / f).exists()]
+    if missing:
+        raise RuntimeError(f"{what} lacks artifacts: {missing}")
+
+
+def busy(torch, rows, wall_ms):
+    """(device busy ms, busy share of the wall) from a profiled run's
+    ``key_averages()``."""
+    busy_ms = sum(_dev_ms(e) for e in device_rows(torch, rows))
+    return busy_ms, busy_ms / wall_ms
+
+
+def check_tabular_trainer(torch):
+    """The fold-batched trainer and the MLP forward, card against CPU, with
+    the same explicit draws (``nn/trainer_checks.py``)."""
+    from pd_fusion_torch.nn import trainer_checks as tc
+
+    head_err = tc.check_mlp_apply()
+    print(f"tabular mlp_apply (K=5 stacked and single, n=400, [64, 32], dropout keeps) card vs "
+          f"CPU: max abs err {head_err:.3e} (atol 1e-5)")
+    for epochs, per_sample, atol in ((50, False, tc.FULL_ATOL), (2, True, tc.SHORT_ATOL)):
+        inputs = tc.trainer_inputs(epochs=epochs, per_sample=per_sample)
+        err_p, err_y, t_card, t_cpu = tc.compare_card_with_cpu(inputs, atol)
+        steps = epochs * -(-400 // 32)
+        print(f"tabular trainer card vs CPU (K=5 n=400 F=35 [64, 32] batch 32, {epochs} epochs = "
+              f"{steps} steps, per_sample={per_sample}, same draws): params max abs err "
+              f"{err_p:.3e} (atol {atol[0]}), probs {err_y:.3e} (atol {atol[1]}); wall card "
+              f"{t_card:.3f} s ({t_card / steps * 1e6:.1f} us a step), CPU {t_cpu:.3f} s")
+
+
+def run_quickstart(torch, yaml, cli, tmp: Path):
+    """The single-split quickstart through the CLI, its artifacts, and
+    ``evaluate --run-dir`` against its results; then once more under the
+    profiler for the busy share."""
+    out = tmp / "quickstart"
+    args = ["run", "--config", str(QUICKSTART), "--synthetic", "--output-dir", str(out)]
+    t0 = time.perf_counter()
+    cli.main(args)
+    wall = time.perf_counter() - t0
+    require_files(out, ["model.pt", "preprocess.pkl", "results.yaml"] + plot_files(PLOTS),
+                  "the quickstart run")
+    results = yaml.safe_load((out / "results.yaml").read_text())
+    if len(results) != 6:
+        raise RuntimeError(f"results.yaml holds {len(results)} scenarios, not 6")
+    cli.main(["evaluate", "--config", str(EVAL_CONFIG), "--run-dir", str(out)])
+    again = yaml.safe_load((out / "results_eval.yaml").read_text())
+    err = max(abs(again[s][m] - v) for s in DETERMINISTIC_SCENARIOS
+              for m, v in results[s].items())
+    if not err <= 1e-6:
+        raise RuntimeError(f"evaluate --run-dir differs from the run by {err}")
+    p_wall, prof = profiled(torch, lambda: cli.main(args[:-1] + [str(tmp / "quickstart_prof")]))
+    _, share = busy(torch, prof.key_averages(), p_wall)
+    return {"wall_s": wall, "auc": results["full_observation"]["roc_auc"], "busy_share": share,
+            "results": results, "eval_err": err}
+
+
+def check_quickstart_spread():
+    """The quickstart's full-observation ROC-AUC over QUICKSTART_DRAWS
+    generator chains on the card: the mean must lie within 3 standard
+    errors of the JAX package's. -> (mean, sd, half-width of the limit)."""
+    from pd_fusion_torch.nn.trainer_checks import quickstart_auc_draws
+
+    aucs = quickstart_auc_draws(QUICKSTART_DRAWS)
+    j_mean, j_sd, j_n = JAX_QUICKSTART_AUC
+    limit = 3 * math.sqrt(aucs.var(ddof=1) / len(aucs) + j_sd ** 2 / j_n)
+    if not abs(aucs.mean() - j_mean) < limit:
+        raise RuntimeError(f"quickstart mean ROC-AUC over {len(aucs)} chains {aucs.mean():.4f} is "
+                           f"not within {limit:.4f} of the JAX package's {j_mean}")
+    return float(aucs.mean()), float(aucs.std(ddof=1)), limit
+
+
+def run_tabular_cv(torch, yaml, ap, cli, config: Path, k: int, out: Path):
+    """One fusion_moddrop CV through the CLI; K1 must not run at all. The
+    trainer call is timed (synchronised at both ends) and its arguments
+    kept for ``trainer_window``."""
+    from pd_fusion_torch.nn import trainer as tt
+
+    args = ["run", "--config", str(config), "--synthetic", "--k-fold", str(k), "--model",
+            "fusion_moddrop", "--output-dir", str(out)]
+    impl, calls = tt.minibatch_moddrop_impl, []
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trained = impl(*a, **kw)
+        torch.cuda.synchronize()
+        calls.append((time.perf_counter() - t0, a, kw))
+        return trained
+
+    ap.reset_launch_counts()
+    tt.minibatch_moddrop_impl = timed
+    try:
+        t0 = time.perf_counter()
+        cli.main(args)
+        wall = time.perf_counter() - t0
+    finally:
+        tt.minibatch_moddrop_impl = impl
+    launches = dict(ap.launch_counts)
+    if launches != {"kernel": 0, "plain": 0}:
+        raise RuntimeError(f"the tabular CV launched K1: {launches}")
+    names = ["results_aggregated.yaml", "fold_assignments.csv", "summary_table.csv"]
+    names += [f"results_fold_{i}.yaml" for i in range(1, k + 1)]
+    names += [f"preds_fold_{i}_full_observation.csv" for i in range(1, k + 1)]
+    require_files(out, names, f"the {k}-fold tabular CV")
+    agg = yaml.safe_load((out / "results_aggregated.yaml").read_text())
+    if len(agg) != 6:
+        raise RuntimeError(f"results_aggregated.yaml holds {len(agg)} scenarios, not 6")
+    auc = agg["full_observation"]["roc_auc"]["mean"]
+    if not math.isfinite(auc):
+        raise RuntimeError(f"the {k}-fold tabular CV's ROC-AUC is {auc}")
+    (trainer_s, a, kw), = calls
+    steps = _steps(a)
+    return {"wall_s": wall, "auc": auc, "aggregated": agg, "args": args, "launches": launches,
+            "trainer_s": trainer_s, "steps": steps, "call": (a, kw)}
+
+
+def _steps(a):
+    """Training steps of a ``minibatch_moddrop_impl`` call: epochs x batches."""
+    X, epochs, batch_size = a[1], a[7], a[8]
+    return epochs * -(-X.shape[1] // batch_size)
+
+
+def trainer_window(torch, call, epochs=2, top=8):
+    """The trainer call of a CV run, again for ``epochs`` epochs under
+    ``torch.profiler``. -> (steps, wall ms, device ms, kernel launches, top
+    device ops). One stream, so device ms / wall is its busy share."""
+    from pd_fusion_torch.nn.trainer import minibatch_moddrop_impl
+
+    a, kw = call
+    a = a[:7] + (epochs,) + a[8:]
+    minibatch_moddrop_impl(*a, **kw)  # warm-up
+    torch.cuda.synchronize()
+    wall_ms, prof = profiled(torch, lambda: minibatch_moddrop_impl(*a, **kw))
+    on_device = device_rows(torch, prof.key_averages())
+    on_device.sort(key=_dev_ms, reverse=True)
+    kernels = sum(e.count for e in on_device)
+    if kernels == 0:
+        raise RuntimeError("the trainer window shows no kernel")
+    return (_steps(a), wall_ms, sum(_dev_ms(e) for e in on_device), kernels,
+            [(e.key[:70], _dev_ms(e), e.count) for e in on_device[:top]])
+
+
+def profile_cv(torch, cli, args, out: Path):
+    """The whole CV once more under ``torch.profiler`` -> (wall ms, busy ms)."""
+    wall_ms, prof = profiled(torch, lambda: cli.main(args[:-1] + [str(out)]))
+    return wall_ms, busy(torch, prof.key_averages(), wall_ms)[0]
+
+
+def scaled_config(yaml, tmp: Path, n: int) -> Path:
+    """A copy of configs/quickstart.yaml whose data_config is a copy of
+    configs/data_ppmi.yaml with ``num_samples: n``."""
+    data_cfg = yaml.safe_load((ROOT / "configs" / "data_ppmi.yaml").read_text())
+    data_cfg["synthetic"]["num_samples"] = n
+    (tmp / f"data_{n}.yaml").write_text(yaml.safe_dump(data_cfg))
+    cfg = yaml.safe_load(QUICKSTART.read_text())
+    cfg["data_config"] = str(tmp / f"data_{n}.yaml")
+    path = tmp / f"quickstart_{n}.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    return path
 
 
 def compare_kernels(torch, ap, checks, other, floor_ms):
@@ -533,8 +736,74 @@ def main() -> int:
           f"(share of device busy {k1_dev / p_busy:.4f}), K1 wrapper host {k1_host:.3f} ms "
           f"(share of wall {k1_host / p_wall:.4f})")
     t, t80 = timings[(16, 48, 256)], timings[(80, 48, 256)]
+    paths = [{"name": "mil_cv", "wall_s": res["wall_s"], "busy_share": p_busy / p_wall,
+              "auc": res["auc"]}]
 
-    # phase 5: the record (times at the training step's shape, and at B=80)
+    # phase 5: the tabular trainer and forward, card against CPU
+    check_tabular_trainer(torch)
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_tabular_"))
+    try:
+        # phase 6: the single-split quickstart through the CLI
+        q = run_quickstart(torch, yaml, cli, tmp)
+        ref, band = QUICKSTART_BAND
+        print(f"quickstart (run --config {QUICKSTART} --synthetic): wall {q['wall_s']:.3f} s, "
+              f"busy share {q['busy_share']:.4f}; evaluate --run-dir matches results.yaml to "
+              f"{q['eval_err']:.1e} on {', '.join(DETERMINISTIC_SCENARIOS)}; seed 42's "
+              f"full_observation ROC-AUC {q['auc']:.4f} (reference band {ref} +- {band}: "
+              f"{'in' if abs(q['auc'] - ref) < band else 'out'})")
+        for scen, m in q["results"].items():
+            print(f"  {scen}: roc_auc {m['roc_auc']:.4f}")
+        q_mean, q_sd, q_lim = check_quickstart_spread()
+        print(f"quickstart over {QUICKSTART_DRAWS} generator chains on the card: ROC-AUC mean "
+              f"{q_mean:.4f}, sd {q_sd:.4f}; the JAX package's over {JAX_QUICKSTART_AUC[2]} "
+              f"chains {JAX_QUICKSTART_AUC[0]} (limit +- {q_lim:.4f})")
+        paths.append({"name": "tabular_quickstart", "wall_s": q["wall_s"],
+                      "busy_share": q["busy_share"], "auc": q["auc"],
+                      "auc_mean_over_chains": q_mean})
+
+        # phases 7 and 8: the bench CV frame and the scaled frame through the
+        # CLI; the bench frame once more under the profiler; each one's
+        # trainer call again for 2 epochs under the profiler
+        big_config = scaled_config(yaml, tmp, 5000)
+        for name, config, k in (("tabular_cv5", QUICKSTART, 5),
+                                ("tabular_cv10_n5000", big_config, 10)):
+            cv = run_tabular_cv(torch, yaml, ap, cli, config, k, tmp / name)
+            if k == 5 and not cv["auc"] > CV_AUC_MIN:
+                raise RuntimeError(f"5-fold CV ROC-AUC {cv['auc']} is not > {CV_AUC_MIN}")
+            host_us = cv["trainer_s"] / cv["steps"] * 1e6
+            print(f"{name} (fusion_moddrop, [64, 32], batch 32, 50 epochs): wall "
+                  f"{cv['wall_s']:.3f} s, trainer {cv['trainer_s']:.3f} s for {cv['steps']} "
+                  f"fold-batched steps ({host_us:.1f} us a step), K1 launches {cv['launches']}, "
+                  f"full_observation ROC-AUC {cv['auc']:.4f}")
+            for scen, m in cv["aggregated"].items():
+                print(f"  {scen}: roc_auc {m['roc_auc']['mean']:.4f} +- "
+                      f"{m['roc_auc']['std']:.4f}")
+            w_steps, w_wall, w_dev, w_n, top = trainer_window(torch, cv["call"])
+            dev_us = w_dev / w_steps * 1e3
+            print(f"  trainer window under torch.profiler ({w_steps} steps): wall {w_wall:.3f} ms "
+                  f"({w_wall / w_steps * 1e3:.1f} us a step), device {w_dev:.3f} ms ({dev_us:.1f} "
+                  f"us a step, busy share {w_dev / w_wall:.4f}), {w_n} kernel launches "
+                  f"({w_n / w_steps:.1f} a step)")
+            for op, ms, count in top:
+                print(f"  {ms:10.3f} ms  x{count:<6d} {op}")
+            rec = {"name": name, "wall_s": cv["wall_s"], "auc": cv["auc"], "steps": cv["steps"],
+                   "host_us_per_step": host_us, "device_us_per_step": dev_us,
+                   "launches_per_step": w_n / w_steps}
+            if k == 5:
+                p_wall, p_busy = profile_cv(torch, cli, cv["args"], tmp / f"{name}_prof")
+                print(f"  the whole CV under torch.profiler: wall {p_wall:.3f} ms, device busy "
+                      f"{p_busy:.3f} ms (share {p_busy / p_wall:.4f})")
+                rec["busy_share"] = p_busy / p_wall
+            else:  # the whole run's profile takes minutes to read back
+                rec["busy_share"] = w_dev / w_wall
+                rec["busy_share_of"] = "the trainer window"
+            paths.append(rec)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # phase 9: the record (times at the training step's shape, and at B=80)
+    print(json.dumps({"paths": paths}))
     print(json.dumps({"kernels": [{
         "name": "attention_pool",
         "route": "cuda",

@@ -1,37 +1,113 @@
 """CLI of the port (port of ``pd_fusion/cli.py``).
 
-``python -m pd_fusion_torch.cli run --config … [--k-fold K] [--seed S]
-[--output-dir D]`` with the JAX package's flags and semantics: ``--k-fold``
-or a ``cv_folds``/``k_folds`` key in the config selects the CV pipeline,
-else the single-split pipeline runs. As in the JAX package, the config
-key is read from ``Path(--config)`` as given, with no repo-root fallback:
-a relative path from another directory skips CV, so pass an absolute
-path. The invocation string is exported as PD_FUSION_COMMAND for
-provenance. The other subcommands of the JAX CLI raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+    python -m pd_fusion_torch.cli run --config <abs path> [--synthetic]
+        [--model M] [--k-fold K] [--seed S] [--output-dir D] [--dataset N]
+    python -m pd_fusion_torch.cli train --config <abs path> [--synthetic]
+    python -m pd_fusion_torch.cli evaluate --config <eval config> --run-dir <run>
+
+``run`` has the JAX package's flags and semantics: ``--k-fold`` or a
+``cv_folds``/``k_folds`` key in the config selects the CV pipeline, else
+the single-split pipeline runs. As in the JAX package, the config key is
+read from ``Path(--config)`` as given, with no repo-root fallback: a
+relative path from another directory skips CV, so pass an absolute path.
+``--model`` expands as in the JAX CLI (``unimodal_<mod>[_mlp|_gbdt]``
+picks a backbone and loads the sibling model config's params). ``train``
+runs the single-split pipeline; ``evaluate`` re-evaluates a finished run
+into ``results_eval.yaml``. The invocation string is exported as
+PD_FUSION_COMMAND for provenance. What the port does not have yet raises
+``NotImplementedError`` naming its ROADMAP item: the ``validate-data``,
+``download-dev`` and ``prepare-dev`` subcommands and the ``moe``,
+``unimodal_*_gbdt`` and ``mil_attention_ft`` models.
 """
 import argparse
 import os
 import sys
 from pathlib import Path
 
+from pd_fusion_torch.experiments.registry import MODEL_REGISTRY, check_ported
 from pd_fusion_torch.utils.io import load_yaml
 from pd_fusion_torch.utils.logging import setup_logging
 
 # subcommands of the JAX CLI that the port does not run yet
 _NOT_PORTED = {
     "validate-data": "ROADMAP Queue 1 item 14 (PPMI suites)",
-    "train": "ROADMAP Queue 1 item 5 (single-split main path)",
-    "evaluate": "ROADMAP Queue 1 item 5 (single-split main path)",
     "download-dev": "ROADMAP Queue 1 item 14",
     "prepare-dev": "ROADMAP Queue 1 item 14",
 }
-_PORTED_MODELS = ("mil_attention",)
+
+
+def _resolve_path(path_str: str) -> Path:
+    p = Path(path_str)
+    if p.exists():
+        return p
+    from pd_fusion_torch.paths import ROOT_DIR
+
+    return ROOT_DIR / p
+
+
+def _load_params(path_str: str):
+    try:
+        return load_yaml(_resolve_path(path_str)).get("params", {})
+    except Exception:
+        return {}
+
+
+def _get_unimodal_backbone(config_path: str) -> str:
+    try:
+        cfg = load_yaml(_resolve_path(config_path))
+        return str(cfg.get("unimodal_backbone", "gbdt")).lower()
+    except Exception:
+        return "gbdt"
+
+
+def _build_model_overrides(args) -> dict:
+    """Expand --model into model_type/modality/params overrides."""
+    overrides = {}
+    model = args.model
+    if model.startswith("unimodal_") and model != "unimodal_gbdt":
+        raw_modality = model.replace("unimodal_", "")
+        if raw_modality.endswith("_mlp"):
+            backbone, raw_modality = "mlp", raw_modality[: -len("_mlp")]
+        elif raw_modality.endswith("_gbdt"):
+            backbone, raw_modality = "gbdt", raw_modality[: -len("_gbdt")]
+        else:
+            backbone = _get_unimodal_backbone(args.config)
+        overrides["modality"] = raw_modality
+        if backbone == "mlp":
+            overrides["model_type"] = "unimodal_mlp"
+            overrides["params"] = _load_params("configs/model_fusion.yaml")
+        else:
+            overrides["model_type"] = "unimodal_gbdt"
+            overrides["params"] = _load_params("configs/model_unimodal.yaml")
+    elif model in ("fusion_late", "fusion_masked", "fusion_moddrop"):
+        overrides["model_type"] = model
+        overrides["params"] = _load_params("configs/model_fusion.yaml")
+    elif model == "moe":
+        overrides["model_type"] = model
+        overrides["params"] = _load_params("configs/model_moe.yaml")
+    else:
+        if model not in MODEL_REGISTRY:
+            raise SystemExit(
+                f"unknown --model '{model}'; valid: {', '.join(sorted(MODEL_REGISTRY))} "
+                "or a unimodal_<modality>[_mlp|_gbdt] spec"
+            )
+        overrides["model_type"] = model
+    check_ported(overrides["model_type"])
+    return overrides
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description="PPMI Multimodal Fusion CLI (PyTorch/CUDA port)")
     subparsers = parser.add_subparsers(dest="command")
+
+    train_parser = subparsers.add_parser("train")
+    train_parser.add_argument("--config", type=str, required=True)
+    train_parser.add_argument("--data-config", type=str, default="configs/data_ppmi.yaml")
+    train_parser.add_argument("--synthetic", action="store_true")
+
+    eval_parser = subparsers.add_parser("evaluate")
+    eval_parser.add_argument("--config", type=str, required=True)
+    eval_parser.add_argument("--run-dir", type=str, required=True)
 
     full_parser = subparsers.add_parser("run")
     full_parser.add_argument("--config", type=str, required=True)
@@ -61,14 +137,19 @@ def main(argv=None):
         sys.argv[1:] if argv is None else argv
     )
 
+    if args.command == "train":
+        # the single-split pipeline, as the JAX CLI's train subcommand
+        from pd_fusion_torch.experiments.run_experiment import run_full_pipeline
+
+        return run_full_pipeline(args.config, args.synthetic, overrides={})
+    if args.command == "evaluate":
+        from pd_fusion_torch.experiments.run_experiment import evaluate_run
+
+        return evaluate_run(args.config, args.run_dir)
+
     overrides = {}
     if args.model:
-        if args.model not in _PORTED_MODELS:
-            raise NotImplementedError(
-                f"--model '{args.model}' is not ported to pd_fusion_torch yet; ported: "
-                f"{', '.join(_PORTED_MODELS)} (ROADMAP Queue 1)"
-            )
-        overrides["model_type"] = args.model
+        overrides.update(_build_model_overrides(args))
     if args.seed is not None:
         overrides["seed"] = args.seed
     if args.output_dir:

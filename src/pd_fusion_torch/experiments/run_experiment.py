@@ -10,9 +10,13 @@
   aggregation into results_aggregated.yaml + summary_table.{csv,tex},
   optional session-shift retrains.
 
+- ``evaluate_run``: re-evaluate a finished run's saved model on its
+  dataset (the ``evaluate`` subcommand) into ``results_eval.yaml``.
+
 Artifact names and YAML structure match the JAX package's. Provenance
-records torch's version and the device instead of JAX's. Datasets: only
-``openneuro_ds001907`` is ported; the others raise ``NotImplementedError``.
+records torch's version and the device instead of JAX's. Datasets:
+``ppmi`` (synthetic or the processed parquet) and ``openneuro_ds001907``;
+the others raise ``NotImplementedError`` (ROADMAP Queue 1 item 14).
 """
 import datetime
 import logging
@@ -66,9 +70,9 @@ def load_dataset(config, data_config, synthetic):
 
         return dataset_name, *load_openneuro_ds001907(data_config)
     if dataset_name == "ppmi":
-        raise NotImplementedError(
-            "the ppmi loader is not ported to pd_fusion_torch yet (ROADMAP Queue 1 item 2)"
-        )
+        from pd_fusion_torch.data.ppmi_loader import load_ppmi_data
+
+        return dataset_name, *load_ppmi_data(data_config, synthetic=synthetic)
     raise NotImplementedError(
         f"dataset '{dataset_name}' is not ported to pd_fusion_torch yet (ROADMAP Queue 1 item 14)"
     )
@@ -153,10 +157,6 @@ def _example_plots(run_dir, config, suffix, results, y_true, y_prob, masks):
 def run_full_pipeline(config_path: str, synthetic: bool = False, overrides: dict = None):
     logger = logging.getLogger("pd_fusion")
     config, data_config, eval_config = _load_configs(config_path, overrides)
-    if config.get("conformal", False):
-        raise NotImplementedError(
-            "conformal calibration is not ported to pd_fusion_torch yet (ROADMAP Queue 1 item 5)"
-        )
     set_seed(config.get("seed", 42))
 
     run_id = _run_id(overrides, "run")
@@ -191,7 +191,72 @@ def run_full_pipeline(config_path: str, synthetic: bool = False, overrides: dict
     y_prob = predict_for_masks(model, test_df, test_masks, prep_info)
     _example_plots(run_dir, config, "", results, y_test, y_prob, test_masks)
 
+    if config.get("conformal", False):
+        _fit_conformal(model, prep_info, val_df, val_masks, run_dir, logger)
+
     logger.info(f"Experiment finished. Results saved in {run_dir}")
+    return results
+
+
+def _fit_conformal(model, prep_info, val_df, val_masks, run_dir, logger):
+    """Mask-conditioned conformal thresholds on the val split ->
+    ``conformal_model.pkl``; a failure is logged and skipped, as in the
+    JAX package."""
+    from pd_fusion_torch.data.preprocess import preprocess_features
+    from pd_fusion_torch.evaluation.evaluate import is_mil_prep
+    from pd_fusion_torch.models.conformal import MaskConformalWrapper
+
+    cp_model = MaskConformalWrapper(model, alpha=0.1)
+    try:
+        if is_mil_prep(prep_info):
+            val_inputs = val_df[prep_info[1]].tolist()
+        else:
+            imp, scl, fs = prep_info
+            val_inputs, _, _ = preprocess_features(val_df, fs, imp, scl)
+        cp_model.fit(val_inputs, val_df[TARGET_COL].values, val_masks)
+        cp_model.save(run_dir / "conformal_model.pkl")
+    except Exception as e:
+        logger.warning(f"Conformal calibration skipped due to error: {e}")
+
+
+def evaluate_run(config_path: str, run_dir: str):
+    """Re-evaluate a finished run's saved model (the ``evaluate`` subcommand).
+
+    Loads model.pt + preprocess.pkl from the run directory, reloads the
+    dataset named by the run's resolved config (same seed -> same
+    stratified test split), re-runs the scenario evaluation with the eval
+    config from ``config_path`` (or the run's own eval_config), and writes
+    ``results_eval.yaml``.
+    """
+    from pd_fusion_torch.models.serialization import load_model
+    from pd_fusion_torch.utils.io import load_pickle
+
+    logger = logging.getLogger("pd_fusion")
+    run_path = Path(run_dir)
+    resolved = load_yaml(run_path / "resolved_config.yaml")
+    prov = load_yaml(run_path / "provenance.yaml") if (run_path / "provenance.yaml").exists() else {}
+
+    eval_config = load_yaml(_resolve_config_path(config_path)) if config_path else None
+    if not eval_config or "scenarios" not in eval_config:
+        eval_config = load_yaml(run_path / "eval_config.yaml")
+    if resolved.get("group_col"):
+        eval_config["group_col"] = resolved["group_col"]
+
+    data_config = load_yaml(
+        _resolve_config_path(resolved.get("data_config", "configs/data_ppmi.yaml"))
+    )
+    set_seed(resolved.get("seed", 42))
+    _, df, masks = load_dataset(resolved, data_config, bool(prov.get("synthetic", False)))
+
+    _, _, test_df = stratified_split(df, seed=resolved.get("seed", 42))
+    test_masks = get_subset_masks(masks, test_df.index)
+
+    model = load_model(run_path / "model.pt")
+    prep_info = load_pickle(run_path / "preprocess.pkl")
+
+    results = evaluate_model(model, test_df, test_masks, prep_info, eval_config)
+    save_yaml(results, run_path / "results_eval.yaml")
+    logger.info(f"Re-evaluation saved to {run_path / 'results_eval.yaml'}")
     return results
 
 

@@ -211,6 +211,17 @@ def pack_metrics_and_probs(md: Dict[str, Tensor], probs: Tensor) -> Tensor:
     )
 
 
+def binary_metrics_packed(probs: Tensor, y_true: Tensor, weights: Tensor) -> Tensor:
+    """All six metrics of every row of probs [..., N] (e.g. [S, N] scenarios
+    or [K, S, N] folds x scenarios), packed with the probs into one buffer:
+    one ``binary_metrics`` per row, then one device -> host copy."""
+    lead, n = probs.shape[:-1], probs.shape[-1]
+    per = [binary_metrics(y, p, w) for y, p, w in
+           zip(y_true.reshape(-1, n), probs.reshape(-1, n), weights.reshape(-1, n))]
+    md = {k: torch.stack([m[k] for m in per]).reshape(lead) for k in METRIC_NAMES}
+    return pack_metrics_and_probs(md, probs)
+
+
 def unpack_metrics_and_probs(packed, metric_shape, probs_shape):
     """Host-side inverse of pack_metrics_and_probs (packed is a numpy
     array after the single fetch)."""

@@ -1,37 +1,54 @@
-"""K-fold cross-validation engine, MIL family (port of the MIL branch of
+"""K-fold cross-validation engine (port of the MLP and MIL branches of
 ``pd_fusion/parallel/cv_engine.py``).
 
 The JAX package trains all folds as one ``vmap``-ed program over a fold
 axis. The port keeps that program's inputs exactly: every fold's training
-bags are padded to the largest fold with zero row weights (padding rows
-join the shuffle and the batch count, as in the JAX program), val /
-calibration / tracking sets are padded to shared widths, and each fold
-draws its ``(init, train)`` generators in the JAX package's order. It then
-loops over the folds in Python; folds as a batch dimension are later
-speed work. Every forward through the MIL head pools with the CUDA kernel
-K1 on the card.
+set is padded to the largest fold with zero row weights (padding rows
+join the shuffle and the batch count, as in the JAX program), eval /
+calibration sets are padded to shared widths, and each fold draws its
+``(init, train)`` generators in the JAX package's order.
 
-The tail is the JAX package's: per-scenario probabilities assembled from
-the kept-bag probabilities (``missing_prob`` for absent or masked bags),
-host isotonic calibration per fold, then all K x S metric sets packed into
-one buffer and fetched once.
+- MLP families (``fusion_late``, ``fusion_masked``, ``fusion_moddrop``,
+  ``unimodal_mlp``): the fold axis is a batch dimension. Params are
+  stacked [K, in, out] and one Adam trains all folds
+  (``nn/trainer.py``); the eval inputs are [K, S, Nv, F'], one forward for
+  every fold and scenario.
+- MIL: the folds loop in Python; every forward through the MIL head pools
+  with the CUDA kernel K1 on the card.
 
-Other model families raise ``NotImplementedError`` (ROADMAP Queue 1).
+The tail is the JAX package's: per-scenario probabilities (for MIL,
+assembled from the kept-bag probabilities, ``missing_prob`` for absent or
+masked bags), host isotonic calibration per fold, then all K x S metric
+sets packed into one buffer and fetched once. The JAX package's default
+calibrated arm is a device isotonic program; the port takes its
+host-isotonic arm (ROADMAP Queue 1 item 7).
+
+``moe`` and ``unimodal_gbdt`` run fold by fold through ``train_pipeline``,
+which raises ``NotImplementedError`` for them (ROADMAP Queue 1 items 8, 12).
 """
 import logging
-from typing import List
+from typing import List, Tuple
 
 import numpy as np
 import torch
 
-from pd_fusion_torch.data.missingness import apply_missingness_scenario
-from pd_fusion_torch.data.schema import TARGET_COL
+from pd_fusion_torch.data.feature_utils import (
+    apply_modality_masks_np,
+    feature_modality_matrix,
+    get_all_feature_cols,
+    get_modality_feature_cols,
+)
+from pd_fusion_torch.data.missingness import apply_missingness_scenario, get_modality_mask_matrix
+from pd_fusion_torch.data.preprocess import preprocess_features
+from pd_fusion_torch.data.schema import MODALITIES, TARGET_COL
 from pd_fusion_torch.data.splits import get_subset_masks
 from pd_fusion_torch.ops import metrics as dev_metrics
 from pd_fusion_torch.utils.device import get_device
 from pd_fusion_torch.utils.seed import fresh_generator
 
-PARALLEL_CV_FAMILIES = {"mil_attention"}
+PARALLEL_CV_FAMILIES = {
+    "fusion_late", "fusion_masked", "fusion_moddrop", "unimodal_mlp", "mil_attention",
+}
 
 logger = logging.getLogger("pd_fusion")
 
@@ -42,14 +59,9 @@ def supports_parallel_cv(config) -> bool:
     return config.get("model_type") in PARALLEL_CV_FAMILIES
 
 
-def _metrics_from_probs_packed(probs, yv, wv):
-    """All K x S metric sets from (host-calibrated) probs [K, S, N],
-    packed with the probs into one fetchable buffer."""
-    K, S = probs.shape[:2]
-    per = [dev_metrics.binary_metrics(yv[i, s], probs[i, s], wv[i, s])
-           for i in range(K) for s in range(S)]
-    md = {k: torch.stack([m[k] for m in per]).reshape(K, S) for k in dev_metrics.METRIC_NAMES}
-    return dev_metrics.pack_metrics_and_probs(md, probs)
+# all K x S metric sets of (host-calibrated) probs [K, S, N], packed with the
+# probs into one fetchable buffer (the JAX engine's name for it)
+_metrics_from_probs_packed = dev_metrics.binary_metrics_packed
 
 
 def run_parallel_cv(config, df, masks, folds, eval_config):
@@ -87,10 +99,219 @@ def run_parallel_cv(config, df, masks, folds, eval_config):
         return _run_parallel_cv_mil(
             config, folds, masks, scenarios, group_col, calib_dfs, do_calibrate, nested,
         )
-    raise NotImplementedError(
-        f"parallel CV for model_type '{model_type}' is not ported to pd_fusion_torch yet "
-        "(ROADMAP Queue 1 items 6-8, 12)"
+    return _run_parallel_cv_mlp(
+        config, folds, masks, scenarios, group_col, calib_dfs, do_calibrate, nested,
     )
+
+
+# ---------------------------------------------------------------------------
+# MLP families: folds as a batch dimension
+# ---------------------------------------------------------------------------
+
+
+def _pad_stack(arrays: List[np.ndarray], pad_value=0.0) -> Tuple[np.ndarray, np.ndarray]:
+    """Stack unequal-length [N_i, ...] arrays into [K, N_max, ...] plus a
+    [K, N_max] validity-weight matrix."""
+    n_max = max(a.shape[0] for a in arrays)
+    K = len(arrays)
+    out = np.full((K, n_max) + arrays[0].shape[1:], pad_value, dtype=np.float32)
+    w = np.zeros((K, n_max), dtype=np.float32)
+    for i, a in enumerate(arrays):
+        out[i, : a.shape[0]] = a
+        w[i, : a.shape[0]] = 1.0
+    return out, w
+
+
+def _stack_params(param_list):
+    """K single-model params -> one fold-stacked params list."""
+    return [{k: torch.stack([p[li][k] for p in param_list]) for k in param_list[0][li]}
+            for li in range(len(param_list[0]))]
+
+
+def _init_folds_mlp(init_gens, dims, device):
+    """All folds' MLP params, stacked (the same draws as per-fold
+    ``mlp_init`` calls with the same generators)."""
+    from pd_fusion_torch.nn.mlp import mlp_init
+
+    return _stack_params([mlp_init(g, dims, device=device) for g in init_gens])
+
+
+def _packed_mlp_eval(trained, Xs, yv, wv):
+    """Probs of every fold and scenario (stacked params, eval inputs
+    [K, S, Nv, F']) + all K x S metric sets, packed into one buffer (one
+    device -> host copy)."""
+    from pd_fusion_torch.nn.trainer import predict_proba
+
+    return _metrics_from_probs_packed(predict_proba(trained, Xs), yv, wv)
+
+
+def _probs_scen_cal(trained, Xs, Xc):
+    """Raw scenario probs [K, S, Nv] + calibration-set probs [K, Nc]."""
+    from pd_fusion_torch.nn.trainer import predict_proba
+
+    return predict_proba(trained, Xs), predict_proba(trained, Xc)
+
+
+def _probs_with_calib(trained, Xs, Xc):
+    """[K, S*Nv + Nc] buffer: scenario probs then calibration-set probs."""
+    probs_scen, probs_cal = _probs_scen_cal(trained, Xs, Xc)
+    K = probs_scen.shape[0]
+    return torch.cat([probs_scen.reshape(K, -1), probs_cal], dim=1)
+
+
+def _fit_isotonic_per_fold(cal_probs, cal_y, n_cal):
+    """K host isotonic fits on the calibration probs (scikit-learn's
+    ``IsotonicRegression(out_of_bounds="clip")``, as the JAX package's
+    host arm; the port's numpy copy)."""
+    from pd_fusion_torch.models.calibrate import IsotonicRegression
+
+    return [IsotonicRegression().fit(cal_probs[i, : n_cal[i]], cal_y[i][: n_cal[i]])
+            for i in range(len(n_cal))]
+
+
+def _run_parallel_cv_mlp(config, folds, masks, scenarios, group_col, calib_dfs,
+                         do_calibrate, nested):
+    from pd_fusion_torch.models.fusion_moddrop import _assignment_matrix
+    from pd_fusion_torch.nn.trainer import fullbatch_impl, minibatch_moddrop_impl
+
+    device = get_device()
+    model_type = config["model_type"]
+    params_cfg = config["params"]
+    K = len(folds)
+
+    # ---- per-fold host prep (scaler fits; tiny) --------------------------
+    all_features = get_all_feature_cols(folds[0][0])
+    if model_type == "unimodal_mlp":
+        feat_cols = get_modality_feature_cols(folds[0][0], config.get("modality", "clinical"))
+    else:
+        feat_cols = all_features
+    if not feat_cols:
+        raise ValueError("No feature columns for parallel CV.")
+    mod_dims = {m: len(get_modality_feature_cols(folds[0][0], m)) for m in MODALITIES}
+    masked = model_type == "fusion_masked"
+    assign = feature_modality_matrix(feat_cols)
+
+    Xtr_list, ytr_list, Xva_scen_list, yva_list = [], [], [], []
+    Xcal_list, ycal_list = [], []  # calibration-set inputs (do_calibrate only)
+    for fi, (train_df, val_df) in enumerate(folds):
+        train_masks = get_subset_masks(masks, train_df.index)
+        val_masks = get_subset_masks(masks, val_df.index)
+        X_tr, _, scaler = preprocess_features(train_df, feat_cols)
+        X_va_raw, _, _ = preprocess_features(val_df, feat_cols, None, scaler)
+        if masked:
+            X_tr = np.concatenate([X_tr, get_modality_mask_matrix(train_masks).astype(np.float32)],
+                                  axis=1)
+        Xtr_list.append(X_tr.astype(np.float32))
+        ytr_list.append(train_df[TARGET_COL].values.astype(np.float32))
+
+        if do_calibrate:
+            # the sequential path's calibration input: the RAW preprocessed
+            # matrix (no scenario zeroing), natural-mask concat for masked
+            # fusion; nested uses the carved calibration split
+            if nested:
+                cal_df = calib_dfs[fi]
+                cal_masks = get_subset_masks(masks, cal_df.index)
+                X_cal, _, _ = preprocess_features(cal_df, feat_cols, None, scaler)
+            else:
+                cal_df, cal_masks, X_cal = val_df, val_masks, X_va_raw
+            if masked:
+                X_cal = np.concatenate(
+                    [X_cal, get_modality_mask_matrix(cal_masks).astype(np.float32)], axis=1)
+            Xcal_list.append(X_cal.astype(np.float32))
+            ycal_list.append(cal_df[TARGET_COL].values.astype(np.float32))
+
+        # scenario-transformed eval inputs for this fold (scenario draws
+        # come from numpy's global RNG in the JAX package's order)
+        scen_X = []
+        for scenario in scenarios:
+            mm = get_modality_mask_matrix(
+                apply_missingness_scenario(val_df, scenario, val_masks)).astype(np.float32)
+            Xs = apply_modality_masks_np(X_va_raw, mm, assign)
+            if masked:
+                Xs = np.concatenate([Xs, mm], axis=1)
+            scen_X.append(Xs.astype(np.float32))
+        Xva_scen_list.append(np.stack(scen_X))  # [S, Nv, F']
+        yva_list.append(val_df[TARGET_COL].values.astype(np.float32))
+
+    # ---- stack + train ----------------------------------------------------
+    t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    X_stack, w_tr = _pad_stack(Xtr_list)
+    y_stack = _pad_stack([y[:, None] for y in ytr_list])[0][..., 0]
+    dims = [X_stack.shape[-1], *params_cfg["hidden_dims"], 1]
+    # interleaved (init, train) draws per fold: the sequential fold loop's
+    # order on the global chain
+    gens = [(fresh_generator(), fresh_generator(device)) for _ in range(K)]
+    params_stack = _init_folds_mlp([g for g, _ in gens], dims, device)
+    train_gens = [g for _, g in gens]
+
+    lr = float(params_cfg["lr"])
+    epochs = int(params_cfg["epochs"])
+    dropout = float(params_cfg.get("dropout", 0.2))
+    wd = float(params_cfg.get("weight_decay", 0.0))
+    if model_type == "fusion_moddrop":
+        assign_md, _ = _assignment_matrix(mod_dims)
+        trained = minibatch_moddrop_impl(
+            params_stack, t(X_stack), t(y_stack), t(w_tr), t(assign_md), train_gens, lr, epochs,
+            # clamped to the PADDED width, as the JAX program's one static
+            # batch size for all folds
+            min(int(params_cfg.get("batch_size", 32)), X_stack.shape[1]),
+            dropout, wd, float(params_cfg.get("moddrop_rate", 0.2)),
+            bool(params_cfg.get("moddrop_per_sample", False)),
+        )
+    else:
+        trained = fullbatch_impl(params_stack, t(X_stack), t(y_stack), t(w_tr), train_gens, lr,
+                                 epochs, dropout, wd)
+
+    # ---- all folds x scenarios: one forward, one packed fetch -------------
+    nv_max = max(a.shape[1] for a in Xva_scen_list)
+    S = len(scenarios)
+    Xs_stack = np.zeros((K, S, nv_max, Xva_scen_list[0].shape[2]), np.float32)
+    for i, a in enumerate(Xva_scen_list):
+        Xs_stack[i, :, : a.shape[1], :] = a
+    yv_stack, wv = _pad_stack([y[:, None] for y in yva_list])
+    yv_rep = np.repeat(yv_stack[..., 0][:, None, :], S, axis=1)
+    wv_rep = np.repeat(wv[:, None, :], S, axis=1)
+
+    if do_calibrate:
+        Xc_stack, _ = _pad_stack(Xcal_list)
+        n_cal = [len(y) for y in ycal_list]
+        buf = _probs_with_calib(trained, t(Xs_stack), t(Xc_stack)).cpu().numpy()
+        raw_probs = buf[:, : S * nv_max].reshape(K, S, nv_max)
+        calibrators = _fit_isotonic_per_fold(buf[:, S * nv_max:], ycal_list, n_cal)
+        calibrated = np.empty_like(raw_probs)
+        for i, iso in enumerate(calibrators):
+            calibrated[i] = iso.transform(raw_probs[i].ravel()).reshape(S, nv_max)
+        packed = _metrics_from_probs_packed(t(calibrated), t(yv_rep), t(wv_rep))
+    else:
+        packed = _packed_mlp_eval(trained, t(Xs_stack), t(yv_rep), t(wv_rep))
+    md, probs = dev_metrics.unpack_metrics_and_probs(packed.cpu().numpy(), (K, S), (K, S, nv_max))
+
+    metrics_all, fold_preds = [], []
+    full_obs_idx = next(
+        (i for i, s in enumerate(scenarios) if s["name"] == "full_observation"), 0
+    )
+    for i, (_, val_df) in enumerate(folds):
+        n_i = len(yva_list[i])
+        res = {}
+        for si, scenario in enumerate(scenarios):
+            m = {k: float(md[k][i, si]) for k in md}
+            if group_col and group_col in val_df.columns:
+                from pd_fusion_torch.evaluation.evaluate import _subject_metrics
+
+                subj = _subject_metrics(
+                    val_df, group_col, yva_list[i].astype(int), probs[i, si, :n_i]
+                )
+                for kk, vv in subj.items():
+                    m[f"subject_{kk}"] = vv
+            res[scenario["name"]] = m
+        metrics_all.append(res)
+        fold_preds.append((yva_list[i], probs[i, full_obs_idx, :n_i]))
+    return metrics_all, fold_preds
+
+
+# ---------------------------------------------------------------------------
+# MIL: folds loop in Python
+# ---------------------------------------------------------------------------
 
 
 def _pad_kept_bags(bags, keep, max_len, input_dim, width):

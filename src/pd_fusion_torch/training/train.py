@@ -1,16 +1,24 @@
-"""Training dispatch (port of ``pd_fusion/training/train.py``: parameter
-resolution and the MIL branch of ``train_pipeline``).
+"""Training dispatch (port of ``pd_fusion/training/train.py``): parameter
+resolution (missing params fall back to the sibling model config file),
+per-family preprocessing and the optional isotonic calibration wrap.
 
-Returns ``(model, prep_info)``; for the MIL family prep_info is
-``("mil", mil_col)``. Other families raise ``NotImplementedError``
-(ROADMAP Queue 1).
+Returns ``(model, prep_info)``; prep_info is what downstream code
+dispatches on:
+  tuple (imputer, scaler, feature_cols) -> flat-feature families
+  tuple ("mil", mil_col)                -> MIL families
+The ``moe``, ``unimodal_gbdt`` and ``mil_attention_ft`` families raise
+``NotImplementedError`` naming their ROADMAP items.
 """
 import logging
 from pathlib import Path
 
 import numpy as np
 
-from pd_fusion_torch.data.schema import TARGET_COL
+from pd_fusion_torch.data.feature_utils import get_all_feature_cols, get_modality_feature_cols
+from pd_fusion_torch.data.missingness import get_modality_mask_matrix
+from pd_fusion_torch.data.preprocess import preprocess_features
+from pd_fusion_torch.data.schema import MODALITIES, TARGET_COL
+from pd_fusion_torch.experiments.registry import check_ported
 from pd_fusion_torch.paths import ROOT_DIR
 from pd_fusion_torch.utils.io import load_yaml
 
@@ -27,7 +35,7 @@ def _load_default_params(path_str: str):
 
 def _resolve_params(config, model_type):
     """Missing params fall back to the sibling model config file, as in
-    the JAX package (the MIL family takes its params as given)."""
+    the JAX package (the MIL families take their params as given)."""
     if "params" not in config or not isinstance(config.get("params"), dict):
         config["params"] = {}
     if model_type in ("fusion_late", "fusion_masked", "fusion_moddrop", "unimodal_mlp"):
@@ -58,25 +66,94 @@ def _maybe_calibrate(config, model, X_val, y_val, masks_val, logger):
 def train_pipeline(config, df_train, df_val, mask_train, mask_val):
     logger = logging.getLogger("pd_fusion")
     model_type = config["model_type"]
+    check_ported(model_type)
     _resolve_params(config, model_type)
-    if model_type != "mil_attention":
-        raise NotImplementedError(
-            f"model_type '{model_type}' is not ported to pd_fusion_torch yet (ROADMAP Queue 1)"
-        )
 
     y_train = df_train[TARGET_COL].values
     y_val = df_val[TARGET_COL].values
-    mil_col = config.get("mil_column", "mri_mil")
-    if mil_col not in df_train.columns:
-        raise ValueError(f"MIL column '{mil_col}' not found in training data.")
-    X_train_bags = df_train[mil_col].tolist()
-    X_val_bags = df_val[mil_col].tolist()
-    if not X_train_bags:
-        raise ValueError("No MIL bags found for training.")
-    from pd_fusion_torch.models.mil_attention import MilAttentionModel
 
-    input_dim = int(np.asarray(X_train_bags[0]).shape[1])
-    model = MilAttentionModel(input_dim, config["params"])
-    model.train(X_train_bags, y_train, (X_val_bags, y_val))
-    model = _maybe_calibrate(config, model, X_val_bags, y_val, mask_val, logger)
-    return model, ("mil", mil_col)
+    # --- MIL: bags of per-slice embeddings --------------------------------
+    if model_type == "mil_attention":
+        mil_col = config.get("mil_column", "mri_mil")
+        if mil_col not in df_train.columns:
+            raise ValueError(f"MIL column '{mil_col}' not found in training data.")
+        X_train_bags = df_train[mil_col].tolist()
+        X_val_bags = df_val[mil_col].tolist()
+        if not X_train_bags:
+            raise ValueError("No MIL bags found for training.")
+        from pd_fusion_torch.models.mil_attention import MilAttentionModel
+
+        input_dim = int(np.asarray(X_train_bags[0]).shape[1])
+        model = MilAttentionModel(input_dim, config["params"])
+        model.train(X_train_bags, y_train, (X_val_bags, y_val))
+        model = _maybe_calibrate(config, model, X_val_bags, y_val, mask_val, logger)
+        return model, ("mil", mil_col)
+
+    # --- flat-feature families --------------------------------------------
+    all_features = get_all_feature_cols(df_train)
+    if not all_features:
+        raise ValueError(
+            "No feature columns found for any modality. Check dataset loader and schema."
+        )
+
+    X_train, imputer, scaler = preprocess_features(df_train, all_features)
+    X_val, _, _ = preprocess_features(df_val, all_features, imputer, scaler)
+
+    prep_info = (imputer, scaler, all_features)
+    calibrate_X_val = X_val
+    calibrate_masks = None
+
+    if model_type == "unimodal_mlp":
+        modality = config.get("modality", "clinical")
+        mod_features = get_modality_feature_cols(df_train, modality)
+        if not mod_features:
+            logger.warning(
+                f"Unimodal '{modality}' has no features in dataset; using constant baseline."
+            )
+            from pd_fusion_torch.models.dummy import ConstantProbabilityModel
+
+            model = ConstantProbabilityModel()
+            model.train(np.zeros((len(y_train), 1)), y_train, None)
+            prep_info = (None, None, mod_features)
+            calibrate_X_val = np.zeros((len(y_val), 1))
+        else:
+            from pd_fusion_torch.models.fusion_late import LateFusionModel
+
+            # the scaler is fitted on the modality's own columns
+            X_tr_mod, imp, scl = preprocess_features(df_train, mod_features)
+            X_va_mod, _, _ = preprocess_features(df_val, mod_features, imp, scl)
+            model = LateFusionModel(len(mod_features), config["params"])
+            model.train(X_tr_mod, y_train, (X_va_mod, y_val))
+            prep_info = (imp, scl, mod_features)
+            calibrate_X_val = X_va_mod
+
+    elif model_type == "fusion_late":
+        from pd_fusion_torch.models.fusion_late import LateFusionModel
+
+        model = LateFusionModel(len(all_features), config["params"])
+        model.train(X_train, y_train, (X_val, y_val))
+
+    elif model_type == "fusion_masked":
+        from pd_fusion_torch.models.fusion_masked import MaskedFusionModel
+
+        train_mm = get_modality_mask_matrix(mask_train)
+        val_mm = get_modality_mask_matrix(mask_val)
+        X_tr = np.concatenate([X_train, train_mm], axis=1)
+        X_va = np.concatenate([X_val, val_mm], axis=1)
+        model = MaskedFusionModel(len(all_features), train_mm.shape[1], config["params"])
+        model.train(X_tr, y_train, (X_va, y_val))
+        calibrate_X_val = X_va
+
+    elif model_type == "fusion_moddrop":
+        from pd_fusion_torch.models.fusion_moddrop import ModalityDropoutModel
+
+        mod_dims = {m: len(get_modality_feature_cols(df_train, m)) for m in MODALITIES}
+        model = ModalityDropoutModel(mod_dims, config["params"])
+        model.train(X_train, y_train, (X_val, y_val))
+        calibrate_masks = mask_val
+
+    else:
+        raise ValueError(f"Unknown model type: {model_type}")
+
+    model = _maybe_calibrate(config, model, calibrate_X_val, y_val, calibrate_masks, logger)
+    return model, prep_info

@@ -7,12 +7,15 @@ so it also runs on a GPU machine without it:
     python -m pytest tests/test_torch_port_cuda.py -q
 
 The checks and their tolerances live in
-``pd_fusion_torch/ops/attention_pool_checks.py``, which ``chip_smoke.py``
+``pd_fusion_torch/ops/attention_pool_checks.py`` (kernel K1) and
+``pd_fusion_torch/nn/trainer_checks.py`` (the fold-batched tabular
+trainer and the MLP forward, card against CPU), which ``chip_smoke.py``
 runs too.
 """
 import pytest
 import torch
 
+from pd_fusion_torch.nn import trainer_checks
 from pd_fusion_torch.ops import attention_pool as ap
 from pd_fusion_torch.ops import attention_pool_checks as checks
 
@@ -50,3 +53,14 @@ def test_mil_head_on_the_card_matches_the_cpu(cuda):
     got = mil_apply(on_card, x.to(cuda), m.to(cuda), gated=True)
     assert ap.launch_counts["kernel"] == before + 1
     torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
+
+
+def test_mlp_apply_on_the_card_matches_the_cpu(cuda):
+    trainer_checks.check_mlp_apply(device=cuda)
+
+
+@pytest.mark.parametrize("per_sample", [False, True], ids=["per-batch", "per-sample"])
+def test_fold_batched_trainer_on_the_card_matches_the_cpu(cuda, per_sample):
+    """Two epochs at the bench frame's widths, the same explicit draws."""
+    inputs = trainer_checks.trainer_inputs(epochs=2, per_sample=per_sample)
+    trainer_checks.compare_card_with_cpu(inputs, trainer_checks.SHORT_ATOL, device=cuda)

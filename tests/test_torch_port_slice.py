@@ -331,7 +331,11 @@ def test_cli_reads_cv_folds_from_config_as_given(monkeypatch, tmp_path):
 def test_cli_refuses_what_is_not_ported():
     from pd_fusion_torch import cli
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["train", "--config", MIL_CONFIG])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["run", "--config", MIL_CONFIG, "--model", "fusion_moddrop"])
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14"):
+        cli.main(["validate-data", "--config", "configs/data_ppmi.yaml"])
+    for model, item in (("moe", "item 8"), ("unimodal_clinical_gbdt", "item 12"),
+                        ("unimodal_gbdt", "item 12"), ("mil_attention_ft", "item 11")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
+            cli.main(["run", "--config", MIL_CONFIG, "--model", model])
+    with pytest.raises(NotImplementedError, match="item 14"):
+        cli.main(["run", "--config", MIL_CONFIG, "--dataset", "uci_parkinsons"])

@@ -63,14 +63,37 @@ Phases; any failure exits non-zero before the final line:
 8. the scaled CV frame (N=5000, K=10, ``bench.py:608-626``) likewise, its
    busy share from the trainer window (the whole run's profile takes
    minutes to read back);
-9. a JSON line with each path's wall time, busy share and AUC; one with
-   each kernel's launches, error and times (B=16 and B=80, and the launch
-   floor); the card line again; then ``{"ok": true, "device": {...}}`` as
-   the last line.
+9. device isotonic (``ops/isotonic.py``) against the host fit on the
+   shared sets (``pd_fusion_torch/ops/isotonic_checks.py``: identical tie
+   classes, equal or within one ulp of [0, 1]), then profiled at K=5,
+   Nc=100 and K=10, Nc=4096 with its peak memory;
+10. the bench CV frame with ``calibrate: true``, val-calibrated and
+   nested, each once on the device isotonic arm and once under
+   ``PD_FUSION_HOST_ISOTONIC=1``: per-fold metrics within 2e-3, and the
+   engine's arm counters show which arm ran;
+11. the MoE: the fold-batched trainer card vs CPU from one init after 50
+   epochs; ``--k-fold 5 --model moe``, calibrated and not (wall, AUC, the
+   trainer's steps, launches and device time a step, the run's busy
+   share); the single-split quickstart with ``--model moe`` and its
+   ``evaluate --run-dir``;
+12. the device GBDT (``--model unimodal_clinical`` resolves to it on the
+   card): two fits bit-identical under ``hist_mode: auto`` (onehot); the
+   fold-batched fit bit-identical to per-fold fits; card vs CPU, trees
+   equal or both passing the split-optimality audit
+   (``nn/gbdt_checks.py``); a round of each lowering profiled, level
+   histograms apart; the 5-fold CV calibrated and not; ``predict_margin``;
+   the quickstart and its ``evaluate``; TreeSHAP card vs CPU with
+   additivity, and a chunk profiled. K1 must launch 0 times in 10-12;
+13. a JSON line with each device program's host and device time and
+   launches a step; one with each path's wall time, busy share and AUC;
+   one with each kernel's launches, error and times (B=16 and B=80, and
+   the launch floor); the card line again; then ``{"ok": true,
+   "device": {...}}`` as the last line.
 
 Needs a CUDA device and the repo around it; it imports nothing of JAX.
 """
 import argparse
+import contextlib
 import ctypes
 import importlib.util
 import json
@@ -630,6 +653,324 @@ def compare_kernels(torch, ap, checks, other, floor_ms):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the calibrated, MoE and GBDT paths (phases 9-12)
+# ---------------------------------------------------------------------------
+
+CAL_BAND = 2e-3  # device against host isotonic, per fold (tests/test_cv_extras.py:330)
+CAL_SCENS = ("full_observation", "no_mri", "clinical_only")
+CAL_METRICS = ("roc_auc", "ece", "brier_score")
+ISO_SHAPES = ((5, 100), (10, 4096))  # (K, Nc): the bench frame's folds; MAX_DEVICE_N at K=10
+GBDT_HP = dict(n_rounds=100, depth=5, lr=0.1, lam=0.0, min_child_weight=1e-3,
+               min_child_samples=20.0)  # configs/model_unimodal.yaml on DeviceHistGBDT's defaults
+GBDT_HIST_RANGE = "GBDT level histograms (nn/gbdt.py::_histograms)"
+DEV = "cuda"
+
+
+@contextlib.contextmanager
+def captured(module, name, calls):
+    """Record the arguments of every call of ``module.name`` in ``calls``."""
+    fn = getattr(module, name)
+
+    def wrapper(*a, **kw):
+        calls.append((a, kw))
+        return fn(*a, **kw)
+
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+@contextlib.contextmanager
+def ranged(torch, module, name, label):
+    """``module.name`` inside a ``record_function`` range named ``label``."""
+    fn = getattr(module, name)
+
+    def wrapper(*a, **kw):
+        with torch.profiler.record_function(label):
+            return fn(*a, **kw)
+
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def program_profile(torch, fn, steps=1, calls=1):
+    """One device program as the main path calls it: its host wall per step
+    unprofiled (synchronised at both ends, after a warm-up call), then
+    ``calls`` calls under ``torch.profiler``: device ms and kernel launches
+    per step. -> dict."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    wall_ms, prof = profiled(torch, lambda: [fn() for _ in range(calls)])
+    rows = device_rows(torch, prof.key_averages())
+    n = calls * steps
+    return {"host_us_per_step": host_ms / steps * 1e3,
+            "device_us_per_step": sum(_dev_ms(e) for e in rows) / n * 1e3,
+            "launches_per_step": sum(e.count for e in rows) / n, "steps": steps,
+            "busy_share": sum(_dev_ms(e) for e in rows) / wall_ms, "prof": prof}
+
+
+def print_program(name, rec):
+    print(f"  program {name}: {rec['steps']} step(s), host {rec['host_us_per_step']:.1f} us a step "
+          f"(unprofiled), device {rec['device_us_per_step']:.1f} us a step, "
+          f"{rec['launches_per_step']:.1f} launches a step, busy share under the profiler "
+          f"{rec['busy_share']:.4f}")
+
+
+def cv_config(yaml, tmp: Path, name, **extra) -> Path:
+    """A copy of configs/quickstart.yaml with ``extra`` keys."""
+    cfg = yaml.safe_load(QUICKSTART.read_text())
+    cfg.update(extra)
+    path = tmp / f"{name}.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    return path
+
+
+def run_cli_cv(yaml, ap, cli, config: Path, model, out: Path, k=5):
+    """One CV run through the CLI: wall, aggregated and per-fold results,
+    with K1 launched neither as kernel nor plain."""
+    ap.reset_launch_counts()
+    t0 = time.perf_counter()
+    cli.main(["run", "--config", str(config), "--synthetic", "--k-fold", str(k), "--model", model,
+              "--output-dir", str(out)])
+    wall = time.perf_counter() - t0
+    if dict(ap.launch_counts) != {"kernel": 0, "plain": 0}:
+        raise RuntimeError(f"the {model} CV launched K1: {ap.launch_counts}")
+    names = ["results_aggregated.yaml", "fold_assignments.csv", "summary_table.csv"]
+    names += [f"results_fold_{i}.yaml" for i in range(1, k + 1)]
+    names += [f"preds_fold_{i}_full_observation.csv" for i in range(1, k + 1)]
+    require_files(out, names, f"the {k}-fold {model} CV")
+    agg = yaml.safe_load((out / "results_aggregated.yaml").read_text())
+    if len(agg) != 6:
+        raise RuntimeError(f"the {model} CV's results_aggregated.yaml holds {len(agg)} scenarios")
+    auc = agg["full_observation"]["roc_auc"]["mean"]
+    if not (math.isfinite(auc) and auc > 0.6):
+        raise RuntimeError(f"the {model} CV's ROC-AUC {auc} is not finite and > 0.6")
+    folds = [yaml.safe_load((out / f"results_fold_{i}.yaml").read_text()) for i in range(1, k + 1)]
+    return {"wall_s": wall, "auc": auc, "auc_std": agg["full_observation"]["roc_auc"]["std"],
+            "folds": folds}
+
+
+def check_isotonic(torch, np):
+    """Device isotonic against the host fit on the shared sets, then timed
+    at the CV shapes with its peak memory."""
+    from pd_fusion_torch.ops import isotonic_checks as ic
+    from pd_fusion_torch.ops.isotonic import isotonic_fit_transform
+
+    n_sets, n_equal = ic.check_all(DEV)
+    print(f"device isotonic vs the host fit ({n_sets} sets: 12 random, every other tie-heavy, and "
+          f"12 quantized): identical tie classes in all, bitwise equal in {n_equal}, the rest "
+          f"within {ic.ULP:.3e}")
+    recs = {}
+    for K, n in ISO_SHAPES:
+        args = ic.fold_batched_inputs(K, n, device=DEV)
+        isotonic_fit_transform(*args)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        isotonic_fit_transform(*args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        rec = program_profile(torch, lambda: isotonic_fit_transform(*args))
+        rec["peak_mb"] = peak / 2**20
+        print(f"device isotonic K={K} Nc={n} (t of 6 Nc points a fold): peak {rec['peak_mb']:.1f} MiB "
+              f"above its inputs")
+        print_program(f"isotonic K={K} Nc={n}", rec)
+        recs[(K, n)] = rec
+    return n_sets, n_equal, recs
+
+
+def check_calibrated_frames(yaml, ap, cli, tmp: Path):
+    """The bench CV frame with ``calibrate: true``, val-calibrated and
+    nested, each on the device arm and under PD_FUSION_HOST_ISOTONIC=1:
+    per-fold metrics within CAL_BAND, and the arm counters show which ran."""
+    import os
+
+    from pd_fusion_torch.parallel import cv_engine
+
+    paths = []
+    for name, extra in (("cv5_calibrated", {"calibrate": True}),
+                        ("cv5_nested", {"calibrate": True, "nested_calibration": True})):
+        config = cv_config(yaml, tmp, name, **extra)
+        runs = {}
+        for arm in ("device", "host"):
+            before = dict(cv_engine.isotonic_arms)
+            if arm == "host":
+                os.environ["PD_FUSION_HOST_ISOTONIC"] = "1"
+            try:
+                runs[arm] = run_cli_cv(yaml, ap, cli, config, "fusion_moddrop", tmp / f"{name}_{arm}")
+            finally:
+                os.environ.pop("PD_FUSION_HOST_ISOTONIC", None)
+            moved = {a: cv_engine.isotonic_arms[a] - before[a] for a in before}
+            if moved != {arm: 1, ("host" if arm == "device" else "device"): 0}:
+                raise RuntimeError(f"{name}: the {arm} arm did not run alone: {moved}")
+            runs[arm]["arms"] = moved
+        err = max(abs(a[s][m] - b[s][m]) for a, b in zip(runs["device"]["folds"], runs["host"]["folds"])
+                  for s in CAL_SCENS for m in CAL_METRICS)
+        if not err <= CAL_BAND:
+            raise RuntimeError(f"{name}: device and host isotonic differ by {err} > {CAL_BAND}")
+        print(f"{name} (fusion_moddrop, bench frame, calibrate: true{', nested' if 'nested' in name else ''}): "
+              f"device arm wall {runs['device']['wall_s']:.3f} s (isotonic arm counters moved "
+              f"{runs['device']['arms']}), host arm wall {runs['host']['wall_s']:.3f} s (moved "
+              f"{runs['host']['arms']}); per-fold metrics max abs difference {err:.3e} (band "
+              f"{CAL_BAND}); full_observation ROC-AUC {runs['device']['auc']:.4f} +- "
+              f"{runs['device']['auc_std']:.4f}")
+        paths.append({"name": f"tabular_{name}", "wall_s": runs["device"]["wall_s"],
+                      "host_arm_wall_s": runs["host"]["wall_s"], "auc": runs["device"]["auc"],
+                      "device_vs_host_max_err": err, "isotonic_arm": "device"})
+    return paths
+
+
+def check_moe(torch, yaml, ap, cli, tmp: Path):
+    """The MoE: the fold-batched trainer card vs CPU, the 5-fold CV
+    calibrated and not (its trainer under the profiler), the quickstart
+    and its evaluate round trip."""
+    from pd_fusion_torch.nn import moe as moe_mod
+    from pd_fusion_torch.nn import trainer_checks as tc
+
+    inputs = tc.moe_inputs()
+    err_p, err_y, t_card, t_cpu = tc.compare_moe_card_with_cpu(inputs, device=DEV)
+    print(f"MoE fold-batched trainer card vs CPU (K=5 n=400, experts [32, 16], router [16], 50 "
+          f"full-batch epochs, one init): params max abs err {err_p:.3e} (atol {tc.MOE_ATOL[0]}), "
+          f"probs {err_y:.3e} (atol {tc.MOE_ATOL[1]}); wall card {t_card:.3f} s, CPU {t_cpu:.3f} s")
+    paths, programs = [], {}
+    for name, extra in (("moe_cv5", {}), ("moe_cv5_calibrated", {"calibrate": True})):
+        calls = []
+        with captured(moe_mod, "train_moe_folds", calls):
+            cv = run_cli_cv(yaml, ap, cli, cv_config(yaml, tmp, name, **extra), "moe", tmp / name)
+        (a, kw), = calls
+        rec = program_profile(torch, lambda: moe_mod.train_moe_folds(*a, **kw), steps=a[6])
+        p_wall, prof = profiled(torch, lambda: cli.main(
+            ["run", "--config", str(tmp / f"{name}.yaml"), "--synthetic", "--k-fold", "5", "--model",
+             "moe", "--output-dir", str(tmp / f"{name}_prof")]))
+        busy_ms, share = busy(torch, prof.key_averages(), p_wall)
+        print(f"{name} (configs/model_moe.yaml, bench frame): wall {cv['wall_s']:.3f} s, "
+              f"full_observation ROC-AUC {cv['auc']:.4f} +- {cv['auc_std']:.4f}, K1 launches 0; "
+              f"the whole CV under torch.profiler busy {busy_ms:.3f} of {p_wall:.3f} ms "
+              f"(share {share:.4f})")
+        print_program("MoE fold-batched trainer (forward, backward, Adam a step)", rec)
+        programs[name] = rec
+        paths.append({"name": name, "wall_s": cv["wall_s"], "auc": cv["auc"], "busy_share": share,
+                      "steps": rec["steps"], "launches_per_step": rec["launches_per_step"],
+                      "device_us_per_step": rec["device_us_per_step"],
+                      "host_us_per_step": rec["host_us_per_step"]})
+    q = run_single(yaml, ap, cli, tmp, "moe")
+    paths.append({"name": "moe_quickstart", "wall_s": q["wall_s"], "auc": q["auc"]})
+    return paths, programs
+
+
+def run_single(yaml, ap, cli, tmp: Path, model):
+    """The single-split quickstart with ``--model``, then ``evaluate
+    --run-dir``: its deterministic scenarios to 1e-6."""
+    out = tmp / f"single_{model}"
+    ap.reset_launch_counts()
+    t0 = time.perf_counter()
+    cli.main(["run", "--config", str(QUICKSTART), "--synthetic", "--model", model,
+              "--output-dir", str(out)])
+    wall = time.perf_counter() - t0
+    if dict(ap.launch_counts) != {"kernel": 0, "plain": 0}:
+        raise RuntimeError(f"the {model} quickstart launched K1: {ap.launch_counts}")
+    require_files(out, ["model.pt", "preprocess.pkl", "results.yaml"] + plot_files(PLOTS),
+                  f"the {model} quickstart")
+    results = yaml.safe_load((out / "results.yaml").read_text())
+    cli.main(["evaluate", "--config", str(EVAL_CONFIG), "--run-dir", str(out)])
+    again = yaml.safe_load((out / "results_eval.yaml").read_text())
+    err = max(abs(again[s][m] - v) for s in DETERMINISTIC_SCENARIOS for m, v in results[s].items())
+    if not err <= 1e-6:
+        raise RuntimeError(f"{model}: evaluate --run-dir differs from the run by {err}")
+    auc = results["full_observation"]["roc_auc"]
+    print(f"quickstart --model {model}: wall {wall:.3f} s, full_observation ROC-AUC {auc:.4f}, "
+          f"evaluate --run-dir matches results.yaml to {err:.1e}")
+    return {"wall_s": wall, "auc": auc}
+
+
+def check_gbdt(torch, np, yaml, ap, cli, tmp: Path):
+    """The device GBDT: determinism, card vs CPU with the audit, fold
+    batching, both lowerings per round, the CV calibrated and not, the
+    quickstart, predict_margin and TreeSHAP."""
+    from pd_fusion_torch.nn import gbdt as G
+    from pd_fusion_torch.nn import gbdt_checks as gc
+
+    bins, y, w, base = gc.cv_like_inputs()  # K=5 n=400 F=10: the bench frame's clinical folds
+    hp = dict(GBDT_HP, hist_mode=G.resolve_hist_mode("auto"))
+    if hp["hist_mode"] != "onehot":
+        raise RuntimeError(f"hist_mode auto resolved to {hp['hist_mode']} on the card")
+    gc.check_two_fits_identical(bins, y, w, base, hp, DEV)
+    same = gc.check_fold_batched_equals_per_fold(bins, y, w, base, hp, DEV)
+    if not same:
+        raise RuntimeError("the fold-batched GBDT fit is not bit-identical to the per-fold fits")
+    print(f"GBDT (K=5 n=400 F=10, 100 trees depth 5): hist_mode auto -> onehot; two fits on the "
+          f"card bit-identical; the fold-batched fit bit-identical to 5 per-fold fits")
+    repeat_scatter = gc.bitwise_equal(gc.fit(bins, y, w, base, dict(hp, hist_mode="scatter"), DEV),
+                                      gc.fit(bins, y, w, base, dict(hp, hist_mode="scatter"), DEV))
+    print(f"  scatter (index_add_, float atomics): two fits bit-identical: {repeat_scatter}")
+    small = dict(hp, n_rounds=30)
+    for mode in ("onehot", "scatter"):
+        equal, first, leaf_err = gc.compare_card_with_cpu(bins[0], y[0], w[0], base[0],
+                                                          dict(small, hist_mode=mode), DEV)
+        print(f"  card vs CPU ({mode}, fold 1, 30 trees): "
+              + ("trees equal" if equal else f"first differing tree {first}, both pass the "
+                 f"float32 split-optimality audit") + f"; leaf max abs err before it {leaf_err:.3e}")
+
+    programs = {}
+    t = lambda a: torch.as_tensor(a, device=DEV)  # noqa: E731
+    tb, ty, tw, tbase = t(bins), t(y), t(w), t(base)
+    for mode in ("onehot", "scatter"):
+        rounds = 10
+        fit = lambda: G.train_gbdt(tb, ty, tw, tbase, **dict(hp, n_rounds=rounds, hist_mode=mode))  # noqa: E731,B023
+        with ranged(torch, G, "_histograms", GBDT_HIST_RANGE):
+            rec = program_profile(torch, fit, steps=rounds)
+        calls, hist_ms, hist_n = range_device(torch, rec["prof"], GBDT_HIST_RANGE)
+        rec["hist_device_us_per_step"] = hist_ms / rounds * 1e3
+        rec["hist_launches_per_step"] = hist_n / rounds
+        print_program(f"GBDT round ({mode}, K=5 folds at once)", rec)
+        print(f"    of which the {calls // rounds} level histograms: device "
+              f"{rec['hist_device_us_per_step']:.1f} us, {rec['hist_launches_per_step']:.1f} "
+              f"launches a round; the rest {rec['device_us_per_step'] - rec['hist_device_us_per_step']:.1f} us")
+        programs[f"gbdt_round_{mode}"] = rec
+
+    paths = []
+    for name, extra in (("gbdt_cv5", {}), ("gbdt_cv5_calibrated", {"calibrate": True})):
+        pm_calls = []
+        with captured(G, "predict_margin", pm_calls):
+            cv = run_cli_cv(yaml, ap, cli, cv_config(yaml, tmp, name, **extra), "unimodal_clinical",
+                            tmp / name)
+        print(f"{name} (--model unimodal_clinical: configs/model_unimodal.yaml on the device "
+              f"backend): wall {cv['wall_s']:.3f} s, full_observation ROC-AUC {cv['auc']:.4f} +- "
+              f"{cv['auc_std']:.4f}, K1 launches 0")
+        paths.append({"name": name, "wall_s": cv["wall_s"], "auc": cv["auc"]})
+    (a, kw), = pm_calls
+    rec = program_profile(torch, lambda: G.predict_margin(*a, **kw), calls=5)
+    print_program(f"predict_margin (100 trees, bins {list(a[1].shape)})", rec)
+    programs["predict_margin"] = rec
+    q = run_single(yaml, ap, cli, tmp, "unimodal_clinical")
+    paths.append({"name": "gbdt_quickstart", "wall_s": q["wall_s"], "auc": q["auc"]})
+
+    trees = gc.fit(bins[0], y[0], w[0], base[0], hp, DEV)
+    err, add, t_card, t_cpu = gc.compare_shap_card_with_cpu(trees, bins[0], base[0], hp["depth"],
+                                                            DEV)
+    print(f"TreeSHAP (100 trees depth 5, 400 rows in 2 chunks) card vs CPU: max abs err {err:.3e} "
+          f"(atol {gc.SHAP_ATOL}); additivity sum(phi) + E - margin {add:.3e} (atol "
+          f"{gc.ADDITIVITY_ATOL}); wall card {t_card:.3f} s, CPU {t_cpu:.3f} s")
+    from pd_fusion_torch.ops import treeshap as TS
+
+    td = {k: t(v) for k, v in trees.items()}
+    chunk = t(bins[0][: TS._CHUNK]).long()
+    rec = program_profile(torch, lambda: TS._shap_chunk(td, chunk, hp["depth"], bins.shape[2]))
+    print_program(f"TreeSHAP chunk ({TS._CHUNK} rows, 100 trees depth 5)", rec)
+    programs["treeshap_chunk"] = rec
+    return paths, programs
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
     parser.add_argument("--compare-with", type=Path, default=None,
@@ -802,7 +1143,25 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # phase 9: the record (times at the training step's shape, and at B=80)
+    # phases 9-12: device isotonic; the bench frame calibrated on the device
+    # arm and on the host arm; the MoE; the device GBDT and TreeSHAP
+    n_sets, n_equal, iso = check_isotonic(torch, np)
+    paths.append({"name": "device_isotonic", "sets": n_sets, "bitwise_equal_sets": n_equal,
+                  **{f"peak_mib_K{K}_Nc{n}": r["peak_mb"] for (K, n), r in iso.items()}})
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_cal_moe_gbdt_"))
+    try:
+        paths += check_calibrated_frames(yaml, ap, cli, tmp)
+        moe_paths, programs = check_moe(torch, yaml, ap, cli, tmp)
+        gbdt_paths, gbdt_programs = check_gbdt(torch, np, yaml, ap, cli, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    paths += moe_paths + gbdt_paths
+    programs.update({f"isotonic_K{K}_Nc{n}": r for (K, n), r in iso.items()}, **gbdt_programs)
+
+    # phase 13: the record (times at the training step's shape, and at B=80)
+    print(json.dumps({"programs": [
+        {"name": name, **{k: v for k, v in rec.items() if k != "prof"}}
+        for name, rec in programs.items()]}))
     print(json.dumps({"paths": paths}))
     print(json.dumps({"kernels": [{
         "name": "attention_pool",

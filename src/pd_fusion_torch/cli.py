@@ -16,8 +16,8 @@ runs the single-split pipeline; ``evaluate`` re-evaluates a finished run
 into ``results_eval.yaml``. The invocation string is exported as
 PD_FUSION_COMMAND for provenance. What the port does not have yet raises
 ``NotImplementedError`` naming its ROADMAP item: the ``validate-data``,
-``download-dev`` and ``prepare-dev`` subcommands and the ``moe``,
-``unimodal_*_gbdt`` and ``mil_attention_ft`` models.
+``download-dev`` and ``prepare-dev`` subcommands and the
+``mil_attention_ft`` model.
 """
 import argparse
 import os

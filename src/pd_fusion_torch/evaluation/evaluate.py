@@ -2,19 +2,21 @@
 
 For each scenario, transform the availability masks (missingness
 engine), prepare the family's inputs (the flat matrix with the dropped
-modality blocks zeroed, plus the mask matrix for ``fusion_masked``; None
-for the bags whose mri modality is dropped), predict, and compute the six
-metrics; with a group column, subject-level aggregation (group mean of
-y_prob, first y_true) adds ``subject_*`` metrics.
+modality blocks zeroed, plus the mask matrix for ``fusion_masked``; the
+per-modality matrices with the dropped ones zeroed and the mask matrix
+for MoE; None for the bags whose mri modality is dropped), predict, and
+compute the six metrics; with a group column, subject-level aggregation
+(group mean of y_prob, first y_true) adds ``subject_*`` metrics.
 
-Flat-matrix MLP models evaluate every scenario at once: one stacked
-[S, N, F'] forward and one metrics pass whose results and probabilities
-come back in one packed buffer (``_eval_scenarios_fused``), when there is
-more than one scenario, both classes are present and the model's own
-class has ``prepare_eval_matrix``. Calibrated and conformal wrappers take
-the per-scenario loop. ``compute_risk_coverage`` sorts by confidence and
-accumulates error vs coverage. MoE inputs raise ``NotImplementedError``
-(ROADMAP Queue 1 item 8).
+When there is more than one scenario and both classes are present, every
+scenario is scored at once: one stacked forward and one metrics pass whose
+results and probabilities come back in one packed buffer. That covers the
+flat-matrix MLP models (``prepare_eval_matrix``, [S, N, F']), MoE
+(``_stack_inputs``, [S, M, N, Fmax]) and the device-backend GBDT
+(``prepare_eval_bins``, one traversal of [S*N, F] bin codes). The check is
+on the model's own class, so calibrated and conformal wrappers take the
+per-scenario loop. ``compute_risk_coverage`` sorts by confidence and
+accumulates error vs coverage.
 """
 from typing import Dict
 
@@ -49,9 +51,14 @@ def predict_for_masks(model, df, masks: Dict[str, np.ndarray], prep_info) -> np.
             bags = [bag if m == 1 else None for bag, m in zip(bags, masks["mri"])]
         return np.asarray(model.predict_proba(bags, masks=masks)).ravel()
     if is_moe_prep(prep_info):
-        raise NotImplementedError(
-            "MoE inputs are not ported to pd_fusion_torch yet (ROADMAP Queue 1 item 8)"
-        )
+        X_dict = {}
+        for mod, (imputer, scaler, feats) in prep_info.items():
+            X_mod, _, _ = preprocess_features(df, feats, imputer, scaler)
+            if mod in masks:
+                X_mod = X_mod * np.asarray(masks[mod]).reshape(-1, 1)
+            X_dict[mod] = X_mod
+        mask_mat = np.stack([masks[m] for m in prep_info], axis=1).astype(np.float32)
+        return np.asarray(model.predict_proba(X_dict, mask_mat)).ravel()
     imputer, scaler, feature_cols = prep_info
     X, _, _ = preprocess_features(df, feature_cols, imputer, scaler)
     X = apply_masks_to_matrix(X, masks, feature_cols)
@@ -109,6 +116,54 @@ def _eval_scenarios_fused(model, df_test, mask_test, prep_info, scenarios, group
     return _assemble_scenario_results(packed, scenarios, df_test, group_col, y_true)
 
 
+def _eval_scenarios_fused_moe(model, df_test, mask_test, prep_info, scenarios, group_col,
+                              y_true):
+    """MoE twin of ``_eval_scenarios_fused``: [S, M, N, Fmax] stacked
+    per-modality inputs (masked modalities zeroed) + [S, N, M] masks -> one
+    stacked-expert forward -> the metrics of every scenario."""
+    from pd_fusion_torch.nn.moe import moe_predict
+
+    base = {mod: preprocess_features(df_test, feats, imputer, scaler)[0]
+            for mod, (imputer, scaler, feats) in prep_info.items()}
+    xs, mms = [], []
+    for scenario in scenarios:
+        cm = apply_missingness_scenario(df_test, scenario, mask_test)
+        xs.append(model._stack_inputs({
+            mod: base[mod] * np.asarray(cm[mod]).reshape(-1, 1) if mod in cm else base[mod]
+            for mod in prep_info}))
+        mms.append(np.stack([cm[m] for m in prep_info], axis=1).astype(np.float32))
+    dev = model.device
+    probs = moe_predict(model.net_params, torch.as_tensor(np.stack(xs), device=dev),
+                        torch.as_tensor(np.stack(mms), device=dev))
+    y, w = _tiled_targets(y_true, len(scenarios), dev)
+    packed = dev_metrics.binary_metrics_packed(probs, y, w).cpu().numpy()
+    return _assemble_scenario_results(packed, scenarios, df_test, group_col, y_true)
+
+
+def _eval_scenarios_fused_gbdt(model, df_test, mask_test, prep_info, scenarios, group_col,
+                               y_true):
+    """Device-GBDT twin of ``_eval_scenarios_fused``: the scenario matrices
+    are zeroed, then binned on the host, and one traversal of the ensemble
+    scores every scenario."""
+    from pd_fusion_torch.nn.gbdt import predict_margin
+
+    imputer, scaler, feature_cols = prep_info
+    X_base, _, _ = preprocess_features(df_test, feature_cols, imputer, scaler)
+    bins = np.concatenate([
+        model.prepare_eval_bins(apply_masks_to_matrix(
+            X_base, apply_missingness_scenario(df_test, scenario, mask_test), feature_cols))
+        for scenario in scenarios])  # [S*N, F]
+    inner = model.model
+    trees = inner._device_trees()
+    dev = trees["leaf"].device
+    margin = predict_margin(trees, torch.as_tensor(bins, device=dev),
+                            np.float32(inner.base_score_), depth=inner.max_depth)
+    probs = torch.sigmoid(margin).reshape(len(scenarios), len(y_true))
+    y, w = _tiled_targets(y_true, len(scenarios), dev)
+    packed = dev_metrics.binary_metrics_packed(probs, y, w).cpu().numpy()
+    return _assemble_scenario_results(packed, scenarios, df_test, group_col, y_true)
+
+
 def evaluate_model(model, df_test, mask_test, prep_info, config) -> Dict[str, Dict[str, float]]:
     results = {}
     scenarios = config.get("scenarios", [{"name": "baseline", "drop_modalities": []}])
@@ -119,11 +174,18 @@ def evaluate_model(model, df_test, mask_test, prep_info, config) -> Dict[str, Di
     # delegate attribute access to the wrapped model, but their predictions
     # must flow through the wrapper, so they take the per-scenario loop
     multi = len(scenarios) > 1 and np.unique(y_true).size >= 2
-    if (multi and not is_mil_prep(prep_info) and not is_moe_prep(prep_info)
-            and hasattr(type(model), "prepare_eval_matrix")):
-        return _eval_scenarios_fused(
-            model, df_test, mask_test, prep_info, scenarios, group_col, y_true
-        )
+    fused = None
+    if multi and is_moe_prep(prep_info):
+        if hasattr(type(model), "_stack_inputs"):
+            fused = _eval_scenarios_fused_moe
+    elif multi and not is_mil_prep(prep_info):
+        if hasattr(type(model), "prepare_eval_matrix"):
+            fused = _eval_scenarios_fused
+        elif (hasattr(type(model), "prepare_eval_bins")
+              and getattr(model, "backend", None) == "device"):
+            fused = _eval_scenarios_fused_gbdt
+    if fused is not None:
+        return fused(model, df_test, mask_test, prep_info, scenarios, group_col, y_true)
 
     for scenario in scenarios:
         current_masks = apply_missingness_scenario(df_test, scenario, mask_test)

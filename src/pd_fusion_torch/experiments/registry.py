@@ -8,8 +8,8 @@ MODEL_REGISTRY = {
     "fusion_late": "pd_fusion_torch.models.fusion_late:LateFusionModel",
     "fusion_masked": "pd_fusion_torch.models.fusion_masked:MaskedFusionModel",
     "fusion_moddrop": "pd_fusion_torch.models.fusion_moddrop:ModalityDropoutModel",
-    "moe": None,
-    "unimodal_gbdt": None,
+    "moe": "pd_fusion_torch.models.moe:MoEModel",
+    "unimodal_gbdt": "pd_fusion_torch.models.unimodal_gbdt:UnimodalGBDT",
     "unimodal_mlp": "pd_fusion_torch.models.fusion_late:LateFusionModel",
     "mil_attention": "pd_fusion_torch.models.mil_attention:MilAttentionModel",
     "mil_attention_ft": None,
@@ -17,8 +17,6 @@ MODEL_REGISTRY = {
 }
 
 NOT_PORTED = {
-    "moe": "ROADMAP Queue 1 item 8",
-    "unimodal_gbdt": "ROADMAP Queue 1 item 12",
     "mil_attention_ft": "ROADMAP Queue 1 item 11",
 }
 

@@ -203,12 +203,15 @@ def _fit_conformal(model, prep_info, val_df, val_masks, run_dir, logger):
     ``conformal_model.pkl``; a failure is logged and skipped, as in the
     JAX package."""
     from pd_fusion_torch.data.preprocess import preprocess_features
-    from pd_fusion_torch.evaluation.evaluate import is_mil_prep
+    from pd_fusion_torch.evaluation.evaluate import is_mil_prep, is_moe_prep
     from pd_fusion_torch.models.conformal import MaskConformalWrapper
 
     cp_model = MaskConformalWrapper(model, alpha=0.1)
     try:
-        if is_mil_prep(prep_info):
+        if is_moe_prep(prep_info):
+            val_inputs = {mod: preprocess_features(val_df, fs, imp, scl)[0]
+                          for mod, (imp, scl, fs) in prep_info.items()}
+        elif is_mil_prep(prep_info):
             val_inputs = val_df[prep_info[1]].tolist()
         else:
             imp, scl, fs = prep_info

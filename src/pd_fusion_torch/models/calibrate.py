@@ -1,15 +1,21 @@
 """Probability calibration (port of ``pd_fusion/models/calibrate.py``).
 
-``IsotonicRegression`` is a numpy/scipy copy of scikit-learn's
+``IsotonicRegression`` is a numpy copy of scikit-learn's
 ``IsotonicRegression(out_of_bounds="clip")`` (increasing): the JAX
 package calibrates with scikit-learn, and the port runs where
 scikit-learn is not installed. It reproduces scikit-learn's steps — sort
 by (X, y), average targets of X values closer than the dtype's
-resolution, pool adjacent violators (``scipy.optimize.
-isotonic_regression``, which scikit-learn itself calls), drop interior
-points of flat runs, clip to the fitted X range and interpolate linearly
-(``scipy.interpolate.interp1d``) — so calibrated probabilities match the
-JAX package's (held against scikit-learn in the tests).
+resolution, pool adjacent violators in float64, drop interior points of
+flat runs, clip to the fitted X range and interpolate linearly — so
+calibrated probabilities match the JAX package's (held against
+scikit-learn in the tests: float32 bit for bit, float64 within an ulp,
+the pooled means being exact sums over exact weights here). The pooling and the interpolation are numpy
+here rather than scipy's ``isotonic_regression`` and ``interp1d``, whose
+arithmetic scikit-learn's results follow but which change between scipy
+releases: the interpolation is ``interp1d(kind="linear")._call_linear``
+written out (left-side search, slope then a separately rounded
+multiply-add in the fit's dtype), so the same fit gives the same ties on
+every machine.
 
 ``CalibratedModel`` wraps a base model with isotonic calibration;
 ``__getattr__`` delegates to the base model. Platt scaling is not ported.
@@ -17,7 +23,6 @@ JAX package's (held against scikit-learn in the tests).
 import pickle
 
 import numpy as np
-from scipy import interpolate, optimize
 
 
 def _make_unique(X, y, w):
@@ -42,6 +47,30 @@ def _make_unique(X, y, w):
     return (np.asarray(xs, X.dtype), np.asarray(ys, X.dtype), np.asarray(ws, X.dtype))
 
 
+def _pool_adjacent_violators(y, w):
+    """Increasing least-squares fit of ``y`` with weights ``w`` (float64):
+    adjacent blocks whose means decrease are pooled, each block's value
+    is its exact weighted sum over its weight."""
+    sums, weights, sizes = [], [], []
+    for yi, wi in zip(y * w, w):
+        s, t, k = yi, wi, 1
+        while sums and sums[-1] / weights[-1] >= s / t:
+            s, t, k = s + sums.pop(), t + weights.pop(), k + sizes.pop()
+        sums.append(s)
+        weights.append(t)
+        sizes.append(k)
+    return np.repeat(np.asarray(sums) / np.asarray(weights), sizes)
+
+
+def _interp_linear(x, y, t):
+    """scipy's ``interp1d(x, y, kind="linear")`` at ``t`` (inside [x[0],
+    x[-1]]) operation for operation, in ``x``'s dtype."""
+    hi = np.clip(np.searchsorted(x, t), 1, len(x) - 1)
+    lo = hi - 1
+    slope = (y[hi] - y[lo]) / (x[hi] - x[lo])
+    return slope * (t - x[lo]) + y[lo]
+
+
 class IsotonicRegression:
     """Increasing isotonic fit of y on 1-D X; ``transform`` clips to the
     fitted X range and interpolates linearly."""
@@ -58,8 +87,7 @@ class IsotonicRegression:
         order = np.lexsort((y, X))
         X, y, w = X[order], y[order], w[order]
         X, y, w = _make_unique(X, y, w)
-        y = np.asarray(optimize.isotonic_regression(y=y, weights=w, increasing=True).x,
-                       dtype=X.dtype)
+        y = _pool_adjacent_violators(y.astype(np.float64), w.astype(np.float64)).astype(X.dtype)
         self.X_min_, self.X_max_ = np.min(X), np.max(X)
         # keep the first and last point of every flat run
         keep = np.ones((len(y),), dtype=bool)
@@ -73,9 +101,7 @@ class IsotonicRegression:
         if len(self.y_thresholds_) == 1:
             res = self.y_thresholds_.repeat(T.shape)
         else:
-            res = interpolate.interp1d(
-                self.X_thresholds_, self.y_thresholds_, kind="linear", bounds_error=False
-            )(T)
+            res = _interp_linear(self.X_thresholds_, self.y_thresholds_, T)
         return res.astype(T.dtype)
 
     predict = transform

@@ -1,8 +1,8 @@
 """Model artifact loading (port of ``pd_fusion/models/serialization.py``).
 
-Every MLP- or MIL-family model saves a dict artifact tagged with ``kind``
-and numpy params; host-side models (constant, calibrated, conformal)
-pickle whole objects. ``load_model`` dispatches on whatever it finds,
+Every MLP-, MoE- or MIL-family model saves a dict artifact tagged with
+``kind`` and numpy params; the GBDT and host-side models (constant,
+calibrated, conformal) pickle whole objects. ``load_model`` dispatches on whatever it finds,
 which is what the ``evaluate`` subcommand runs on. The kinds whose
 families the port does not have yet raise ``NotImplementedError``.
 """
@@ -15,6 +15,7 @@ _KIND_LOADERS = {
     "fusion_late": ("pd_fusion_torch.models.fusion_late", "LateFusionModel"),
     "fusion_masked": ("pd_fusion_torch.models.fusion_masked", "MaskedFusionModel"),
     "fusion_moddrop": ("pd_fusion_torch.models.fusion_moddrop", "ModalityDropoutModel"),
+    "moe": ("pd_fusion_torch.models.moe", "MoEModel"),
     "mil_attention": ("pd_fusion_torch.models.mil_attention", "MilAttentionModel"),
 }
 
@@ -31,6 +32,6 @@ def load_model(path):
         module_name, cls_name = _KIND_LOADERS[kind]
         cls = getattr(importlib.import_module(module_name), cls_name)
         return cls.load(path)
-    # whole-object pickles (ConstantProbabilityModel, CalibratedModel,
-    # MaskConformalWrapper) deserialize directly
+    # whole-object pickles (UnimodalGBDT, ConstantProbabilityModel,
+    # CalibratedModel, MaskConformalWrapper) deserialize directly
     return obj

@@ -10,6 +10,9 @@ one step. On an H100 the bench frame's 650 steps stayed within 4.5e-7 on
 the params and 1.8e-7 on the probabilities (PERF.md); the full-run
 tolerance keeps a 200x margin over that.
 
+The MoE's fold-batched trainer (``nn/moe.py::train_moe_folds``) is held
+the same way: one init, card against CPU, ``MOE_ATOL`` after a full run.
+
 ``quickstart_auc_draws`` is the quickstart's ROC-AUC over many generator
 chains, which ``chip_smoke.py`` and the CPU tests hold to the JAX
 package's.
@@ -25,6 +28,10 @@ from pd_fusion_torch.nn.trainer import draw_minibatch, minibatch_moddrop_impl
 # (params, probabilities) max abs error allowed between card and CPU
 SHORT_ATOL = (1e-5, 1e-5)  # 2 epochs
 FULL_ATOL = (1e-4, 1e-4)  # a full run (e.g. 50 epochs x 13 batches)
+# the MoE after 50 full-batch steps: the bound the CPU tests measured
+# between the port's and the JAX package's fold-batched runs (a near-zero
+# gradient's rounding can turn into an Adam step of up to lr)
+MOE_ATOL = (5e-3, 1e-3)
 MODALITY_DIMS = (10, 5, 20)  # the synthetic PPMI frame's clinical / datspect / mri widths
 
 
@@ -150,3 +157,60 @@ def quickstart_auc_draws(n_draws, first_seed=1000, quickstart="configs/quickstar
         res = evaluate_model(model, te, get_subset_masks(masks, te.index), prep, one)
         aucs.append(res["full_observation"]["roc_auc"])
     return np.asarray(aucs)
+
+
+def moe_inputs(K=5, n=400, dims=(10, 5, 20), expert_hidden=(32, 16), router_hidden=(16,),
+               seed=0):
+    """CPU tensors for one fold-batched MoE run at the bench frame's widths
+    (configs/model_moe.yaml's experts and router): stacked params, stacked
+    zero-padded inputs [K, M, n, Fmax], availability masks [K, n, M],
+    labels and weights with a ragged last fold."""
+    from pd_fusion_torch.nn.moe import moe_init
+
+    mods = {f"m{i}": d for i, d in enumerate(dims)}
+    rng = np.random.RandomState(seed)
+    f_max, M = max(dims), len(dims)
+    x = np.zeros((K, M, n, f_max), np.float32)
+    for mi, d in enumerate(dims):
+        x[:, mi, :, :d] = rng.randn(K, n, d)
+    mask = (rng.rand(K, n, M) > 0.3).astype(np.float32)
+    x *= mask.transpose(0, 2, 1)[..., None]
+    y = (x[:, 0, :, 0] - x[:, 2, :, 1] + 0.5 * rng.randn(K, n) > 0).astype(np.float32)
+    w = np.ones((K, n), np.float32)
+    w[-1, -(n // 10):] = 0.0
+    per_fold = [moe_init(torch.Generator().manual_seed(seed * 100 + k), mods, list(expert_hidden),
+                         list(router_hidden)) for k in range(K)]
+    params = {part: [{key: torch.stack([p[part][li][key] for p in per_fold])
+                      for key in ("w", "b")} for li in range(len(per_fold[0][part]))]
+              for part in ("experts", "router")}
+    return {"params": params, "x": torch.from_numpy(x), "mask": torch.from_numpy(mask),
+            "y": torch.from_numpy(y), "w": torch.from_numpy(w)}
+
+
+def run_moe(inputs, device, epochs=50, lr=1e-3):
+    """-> (trained params as numpy, probs [K, n] on the CPU, wall s)."""
+    from pd_fusion_torch.nn.moe import moe_params_to_numpy, moe_predict, train_moe_folds
+
+    t = {k: _to(v, device) for k, v in inputs.items()}
+    if device != "cpu":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trained = train_moe_folds(t["params"], t["x"], t["mask"], t["y"], t["w"], lr, epochs)
+    probs = moe_predict(trained, t["x"], t["mask"]).cpu()
+    wall = time.perf_counter() - t0
+    return moe_params_to_numpy(trained), probs, wall
+
+
+def compare_moe_card_with_cpu(inputs, atol=MOE_ATOL, device="cuda", epochs=50):
+    """The fold-batched MoE trainer on the card and on the CPU from one
+    init; raise if either max abs error exceeds ``atol`` = (params,
+    probs). -> (params err, probs err, card wall s, cpu wall s)."""
+    card, p_card, t_card = run_moe(inputs, device, epochs)
+    cpu, p_cpu, t_cpu = run_moe(inputs, "cpu", epochs)
+    err_p = max(float(np.abs(card[part][i][k] - cpu[part][i][k]).max())
+                for part in ("experts", "router") for i in range(len(cpu[part])) for k in ("w", "b"))
+    err_y = float((p_card - p_cpu).abs().max())
+    if err_p > atol[0] or err_y > atol[1]:
+        raise AssertionError(f"fold-batched MoE, card vs CPU: params max abs err {err_p:.3e} "
+                             f"(atol {atol[0]}), probs {err_y:.3e} (atol {atol[1]})")
+    return err_p, err_y, t_card, t_cpu

@@ -1,32 +1,37 @@
-"""K-fold cross-validation engine (port of the MLP and MIL branches of
-``pd_fusion/parallel/cv_engine.py``).
+"""K-fold cross-validation engine (port of
+``pd_fusion/parallel/cv_engine.py``, without its multi-device mesh).
 
 The JAX package trains all folds as one ``vmap``-ed program over a fold
 axis. The port keeps that program's inputs exactly: every fold's training
 set is padded to the largest fold with zero row weights (padding rows
 join the shuffle and the batch count, as in the JAX program), eval /
 calibration sets are padded to shared widths, and each fold draws its
-``(init, train)`` generators in the JAX package's order.
+generators in the JAX package's order.
 
 - MLP families (``fusion_late``, ``fusion_masked``, ``fusion_moddrop``,
   ``unimodal_mlp``): the fold axis is a batch dimension. Params are
   stacked [K, in, out] and one Adam trains all folds
   (``nn/trainer.py``); the eval inputs are [K, S, Nv, F'], one forward for
   every fold and scenario.
+- ``moe``: stacked-expert params [K, M, in, out], inputs [K, M, N, Fmax],
+  one full-batch Adam over all folds (``nn/moe.py``); every fold and
+  scenario in one forward.
+- ``unimodal_gbdt`` on the device backend: per-fold host binning, then
+  every fold's ensemble grows at once (``nn/gbdt.py``, bins [K, N, F]).
 - MIL: the folds loop in Python; every forward through the MIL head pools
   with the CUDA kernel K1 on the card.
 
 The tail is the JAX package's: per-scenario probabilities (for MIL,
 assembled from the kept-bag probabilities, ``missing_prob`` for absent or
-masked bags), host isotonic calibration per fold, then all K x S metric
-sets packed into one buffer and fetched once. The JAX package's default
-calibrated arm is a device isotonic program; the port takes its
-host-isotonic arm (ROADMAP Queue 1 item 7).
-
-``moe`` and ``unimodal_gbdt`` run fold by fold through ``train_pipeline``,
-which raises ``NotImplementedError`` for them (ROADMAP Queue 1 items 8, 12).
+masked bags), isotonic calibration per fold, then all K x S metric sets
+packed into one buffer and fetched once. Calibration runs on the device
+(``ops/isotonic.py``, fit and transform of every fold at once) unless a
+calibration set is larger than ``MAX_DEVICE_N`` or
+``PD_FUSION_HOST_ISOTONIC=1``; then, and always for MIL, it is the host
+fit per fold. ``isotonic_arms`` counts which arm each calibrated run took.
 """
 import logging
+import os
 from typing import List, Tuple
 
 import numpy as np
@@ -42,25 +47,40 @@ from pd_fusion_torch.data.missingness import apply_missingness_scenario, get_mod
 from pd_fusion_torch.data.preprocess import preprocess_features
 from pd_fusion_torch.data.schema import MODALITIES, TARGET_COL
 from pd_fusion_torch.data.splits import get_subset_masks
+from pd_fusion_torch.ops import isotonic as dev_isotonic
 from pd_fusion_torch.ops import metrics as dev_metrics
 from pd_fusion_torch.utils.device import get_device
 from pd_fusion_torch.utils.seed import fresh_generator
 
 PARALLEL_CV_FAMILIES = {
-    "fusion_late", "fusion_masked", "fusion_moddrop", "unimodal_mlp", "mil_attention",
+    "fusion_late", "fusion_masked", "fusion_moddrop", "unimodal_mlp", "moe", "mil_attention",
 }
 
 logger = logging.getLogger("pd_fusion")
+
+# calibrated CV runs per isotonic arm, since import
+isotonic_arms = {"device": 0, "host": 0}
+
+
+def gbdt_device_backend(config) -> bool:
+    """True when ``unimodal_gbdt`` resolves to the device trainer
+    (``nn/gbdt.py::resolve_gbdt_backend``); only then are the folds a batch
+    dimension, and the host backend keeps the fold-by-fold path."""
+    from pd_fusion_torch.nn.gbdt import resolve_gbdt_backend
+
+    return resolve_gbdt_backend(config.get("params", {}).get("backend")) == "device"
 
 
 def supports_parallel_cv(config) -> bool:
     if config.get("parallel_cv", True) is False:
         return False
+    if config.get("model_type") == "unimodal_gbdt":
+        return gbdt_device_backend(config)
     return config.get("model_type") in PARALLEL_CV_FAMILIES
 
 
-# all K x S metric sets of (host-calibrated) probs [K, S, N], packed with the
-# probs into one fetchable buffer (the JAX engine's name for it)
+# all K x S metric sets of probs [K, S, N], packed with the probs into one
+# fetchable buffer (the JAX engine's name for it)
 _metrics_from_probs_packed = dev_metrics.binary_metrics_packed
 
 
@@ -95,17 +115,13 @@ def run_parallel_cv(config, df, masks, folds, eval_config):
             calib_dfs.append(calib_df)
         folds = new_folds
 
-    if model_type == "mil_attention":
-        return _run_parallel_cv_mil(
-            config, folds, masks, scenarios, group_col, calib_dfs, do_calibrate, nested,
-        )
-    return _run_parallel_cv_mlp(
-        config, folds, masks, scenarios, group_col, calib_dfs, do_calibrate, nested,
-    )
+    run = {"mil_attention": _run_parallel_cv_mil, "unimodal_gbdt": _run_parallel_cv_gbdt,
+           "moe": _run_parallel_cv_moe}.get(model_type, _run_parallel_cv_mlp)
+    return run(config, folds, masks, scenarios, group_col, calib_dfs, do_calibrate, nested)
 
 
 # ---------------------------------------------------------------------------
-# MLP families: folds as a batch dimension
+# shared pieces
 # ---------------------------------------------------------------------------
 
 
@@ -120,6 +136,114 @@ def _pad_stack(arrays: List[np.ndarray], pad_value=0.0) -> Tuple[np.ndarray, np.
         out[i, : a.shape[0]] = a
         w[i, : a.shape[0]] = 1.0
     return out, w
+
+
+def _eval_targets(yva_list, S):
+    """[K, S, Nv_max] labels and weights (zero on the padding)."""
+    yv, wv = _pad_stack([y[:, None] for y in yva_list])
+    return (np.repeat(yv[..., 0][:, None, :], S, axis=1),
+            np.repeat(wv[:, None, :], S, axis=1))
+
+
+def _pad_cal_targets(ycal_list, device=None):
+    """[K, Nc_max] labels + validity mask for the device isotonic fit."""
+    K = len(ycal_list)
+    nc_max = max(len(y) for y in ycal_list)
+    ycal = np.zeros((K, nc_max), np.float32)
+    calmask = np.zeros((K, nc_max), bool)
+    for i, y in enumerate(ycal_list):
+        ycal[i, : len(y)] = y
+        calmask[i, : len(y)] = True
+    return torch.as_tensor(ycal, device=device), torch.as_tensor(calmask, device=device)
+
+
+def _use_device_isotonic(ycal_list) -> bool:
+    """Device isotonic is the default; the host fit covers calibration
+    sets larger than ``MAX_DEVICE_N`` (the max-min lowering builds Nc^2
+    buffers) and ``PD_FUSION_HOST_ISOTONIC=1`` for A/B."""
+    if os.environ.get("PD_FUSION_HOST_ISOTONIC") == "1":
+        return False
+    return max(len(y) for y in ycal_list) <= dev_isotonic.MAX_DEVICE_N
+
+
+def _iso_cal_metrics_pack(probs_scen, probs_cal, ycal, calmask, yv, wv):
+    """Device isotonic calibration (fit per fold on the calibration probs
+    [K, Nc], transform every fold x scenario prob [K, S, Nv]) + all K x S
+    metrics, packed."""
+    K, S, nv = probs_scen.shape
+    calibrated = dev_isotonic.isotonic_fit_transform(
+        probs_cal, ycal, calmask, probs_scen.reshape(K, S * nv)).reshape(K, S, nv)
+    return _metrics_from_probs_packed(calibrated, yv, wv)
+
+
+def _fit_isotonic_per_fold(cal_probs, cal_y, n_cal):
+    """K host isotonic fits on the calibration probs (scikit-learn's
+    ``IsotonicRegression(out_of_bounds="clip")``, as the JAX package's
+    host arm; the port's numpy copy)."""
+    from pd_fusion_torch.models.calibrate import IsotonicRegression
+
+    return [IsotonicRegression().fit(cal_probs[i, : n_cal[i]], cal_y[i][: n_cal[i]])
+            for i in range(len(n_cal))]
+
+
+def _scen_cal_buffer(probs_scen, probs_cal):
+    """[K, S*Nv + Nc] buffer: scenario probs then calibration-set probs."""
+    return torch.cat([probs_scen.reshape(probs_scen.shape[0], -1), probs_cal], dim=1)
+
+
+def _calibrated_pack(probs_scen, probs_cal, ycal_list, yv, wv):
+    """The calibrated tail of every tabular family: raw scenario probs
+    [K, S, Nv] and calibration-set probs [K, Nc] (padded) -> packed
+    metrics and calibrated probs, on the device arm or the host arm."""
+    dev = probs_scen.device
+    if _use_device_isotonic(ycal_list):
+        isotonic_arms["device"] += 1
+        ycal, calmask = _pad_cal_targets(ycal_list, dev)
+        return _iso_cal_metrics_pack(probs_scen, probs_cal, ycal, calmask, yv, wv)
+    isotonic_arms["host"] += 1
+    K, S, nv = probs_scen.shape
+    buf = _scen_cal_buffer(probs_scen, probs_cal).cpu().numpy()
+    raw = buf[:, : S * nv].reshape(K, S, nv)
+    calibrators = _fit_isotonic_per_fold(buf[:, S * nv:], ycal_list, [len(y) for y in ycal_list])
+    calibrated = np.empty_like(raw)
+    for i, iso in enumerate(calibrators):
+        calibrated[i] = iso.transform(raw[i].ravel()).reshape(S, nv)
+    return _metrics_from_probs_packed(torch.as_tensor(calibrated, device=dev), yv, wv)
+
+
+def _fold_results(packed, scenarios, group_col, val_dfs, yva_list):
+    """The packed [K, S] metrics and [K, S, Nv_max] probs -> per-fold
+    {scenario: metrics} dicts (plus subject-level metrics with a group
+    column) and each fold's full-observation (y_true, y_prob)."""
+    K, S = len(val_dfs), len(scenarios)
+    nv_max = max(len(y) for y in yva_list)
+    md, probs = dev_metrics.unpack_metrics_and_probs(packed, (K, S), (K, S, nv_max))
+    full_obs_idx = next(
+        (i for i, s in enumerate(scenarios) if s["name"] == "full_observation"), 0
+    )
+    metrics_all, fold_preds = [], []
+    for i, val_df in enumerate(val_dfs):
+        n_i = len(yva_list[i])
+        res = {}
+        for si, scenario in enumerate(scenarios):
+            m = {k: float(md[k][i, si]) for k in md}
+            if group_col and group_col in val_df.columns:
+                from pd_fusion_torch.evaluation.evaluate import _subject_metrics
+
+                subj = _subject_metrics(
+                    val_df, group_col, yva_list[i].astype(int), probs[i, si, :n_i]
+                )
+                for kk, vv in subj.items():
+                    m[f"subject_{kk}"] = vv
+            res[scenario["name"]] = m
+        metrics_all.append(res)
+        fold_preds.append((yva_list[i], probs[i, full_obs_idx, :n_i]))
+    return metrics_all, fold_preds
+
+
+# ---------------------------------------------------------------------------
+# MLP families: folds as a batch dimension
+# ---------------------------------------------------------------------------
 
 
 def _stack_params(param_list):
@@ -154,19 +278,7 @@ def _probs_scen_cal(trained, Xs, Xc):
 
 def _probs_with_calib(trained, Xs, Xc):
     """[K, S*Nv + Nc] buffer: scenario probs then calibration-set probs."""
-    probs_scen, probs_cal = _probs_scen_cal(trained, Xs, Xc)
-    K = probs_scen.shape[0]
-    return torch.cat([probs_scen.reshape(K, -1), probs_cal], dim=1)
-
-
-def _fit_isotonic_per_fold(cal_probs, cal_y, n_cal):
-    """K host isotonic fits on the calibration probs (scikit-learn's
-    ``IsotonicRegression(out_of_bounds="clip")``, as the JAX package's
-    host arm; the port's numpy copy)."""
-    from pd_fusion_torch.models.calibrate import IsotonicRegression
-
-    return [IsotonicRegression().fit(cal_probs[i, : n_cal[i]], cal_y[i][: n_cal[i]])
-            for i in range(len(n_cal))]
+    return _scen_cal_buffer(*_probs_scen_cal(trained, Xs, Xc))
 
 
 def _run_parallel_cv_mlp(config, folds, masks, scenarios, group_col, calib_dfs,
@@ -264,49 +376,228 @@ def _run_parallel_cv_mlp(config, folds, masks, scenarios, group_col, calib_dfs,
 
     # ---- all folds x scenarios: one forward, one packed fetch -------------
     nv_max = max(a.shape[1] for a in Xva_scen_list)
-    S = len(scenarios)
-    Xs_stack = np.zeros((K, S, nv_max, Xva_scen_list[0].shape[2]), np.float32)
+    Xs_stack = np.zeros((K, len(scenarios), nv_max, Xva_scen_list[0].shape[2]), np.float32)
     for i, a in enumerate(Xva_scen_list):
         Xs_stack[i, :, : a.shape[1], :] = a
-    yv_stack, wv = _pad_stack([y[:, None] for y in yva_list])
-    yv_rep = np.repeat(yv_stack[..., 0][:, None, :], S, axis=1)
-    wv_rep = np.repeat(wv[:, None, :], S, axis=1)
+    yv_rep, wv_rep = _eval_targets(yva_list, len(scenarios))
 
     if do_calibrate:
-        Xc_stack, _ = _pad_stack(Xcal_list)
-        n_cal = [len(y) for y in ycal_list]
-        buf = _probs_with_calib(trained, t(Xs_stack), t(Xc_stack)).cpu().numpy()
-        raw_probs = buf[:, : S * nv_max].reshape(K, S, nv_max)
-        calibrators = _fit_isotonic_per_fold(buf[:, S * nv_max:], ycal_list, n_cal)
-        calibrated = np.empty_like(raw_probs)
-        for i, iso in enumerate(calibrators):
-            calibrated[i] = iso.transform(raw_probs[i].ravel()).reshape(S, nv_max)
-        packed = _metrics_from_probs_packed(t(calibrated), t(yv_rep), t(wv_rep))
+        probs_scen, probs_cal = _probs_scen_cal(trained, t(Xs_stack), t(_pad_stack(Xcal_list)[0]))
+        packed = _calibrated_pack(probs_scen, probs_cal, ycal_list, t(yv_rep), t(wv_rep))
     else:
         packed = _packed_mlp_eval(trained, t(Xs_stack), t(yv_rep), t(wv_rep))
-    md, probs = dev_metrics.unpack_metrics_and_probs(packed.cpu().numpy(), (K, S), (K, S, nv_max))
+    return _fold_results(packed.cpu().numpy(), scenarios, group_col, [v for _, v in folds],
+                         yva_list)
 
-    metrics_all, fold_preds = [], []
-    full_obs_idx = next(
-        (i for i, s in enumerate(scenarios) if s["name"] == "full_observation"), 0
-    )
-    for i, (_, val_df) in enumerate(folds):
-        n_i = len(yva_list[i])
-        res = {}
+
+# ---------------------------------------------------------------------------
+# MoE: folds as a batch dimension
+# ---------------------------------------------------------------------------
+
+
+def _init_folds_moe(init_gens, dims, expert_hidden, router_hidden, device):
+    """All folds' MoE params, stacked (the same draws as per-fold
+    ``moe_init`` calls with the same generators)."""
+    from pd_fusion_torch.nn.moe import moe_init
+
+    per_fold = [moe_init(g, dims, expert_hidden, router_hidden, device=device) for g in init_gens]
+    return {part: _stack_params([p[part] for p in per_fold]) for part in ("experts", "router")}
+
+
+def _moe_prep_fold(train_df, val_df, cal_df):
+    """Per-modality preprocessed matrices of one fold: (train, val, cal or
+    None, dims). A modality without features is left out, as in the
+    sequential path."""
+    Xd_tr, Xd_va, Xd_cal, dims = {}, {}, {}, {}
+    for mod in MODALITIES:
+        feats = get_modality_feature_cols(train_df, mod)
+        if not feats:
+            continue
+        Xd_tr[mod], _, scaler = preprocess_features(train_df, feats)
+        Xd_va[mod] = preprocess_features(val_df, feats, None, scaler)[0]
+        if cal_df is not None:
+            Xd_cal[mod] = preprocess_features(cal_df, feats, None, scaler)[0]
+        dims[mod] = len(feats)
+    return Xd_tr, Xd_va, (Xd_cal if cal_df is not None else None), dims
+
+
+def _run_parallel_cv_moe(config, folds, masks, scenarios, group_col, calib_dfs,
+                         do_calibrate, nested):
+    """Stacked MoE CV: [K, M, N, Fmax] inputs, one fold-batched trainer.
+    Scenario inputs zero the masked modalities' blocks (the sequential
+    ``predict_for_masks``); calibration inputs are the un-zeroed matrices
+    with natural routing masks (the sequential calibration wrapper's)."""
+    from pd_fusion_torch.nn.moe import map_params, moe_apply, train_moe_folds
+
+    device = get_device()
+    params_cfg = config["params"]
+    K, S = len(folds), len(scenarios)
+    fold_data, ytr_list, yva_list, ycal_list = [], [], [], []
+    for fi, (train_df, val_df) in enumerate(folds):
+        cal_df = calib_dfs[fi] if nested else None
+        fold_data.append(_moe_prep_fold(train_df, val_df, cal_df))
+        ytr_list.append(train_df[TARGET_COL].values.astype(np.float32))
+        yva_list.append(val_df[TARGET_COL].values.astype(np.float32))
+        if do_calibrate:
+            ycal_list.append(cal_df[TARGET_COL].values.astype(np.float32) if nested
+                             else yva_list[-1])
+    dims = fold_data[0][3]
+    mods = sorted(dims)
+    f_max = max(dims.values())
+    M = len(mods)
+
+    def stack_dict(Xd, n):
+        x = np.zeros((M, n, f_max), np.float32)
+        for mi, mod in enumerate(mods):
+            x[mi, :, : Xd[mod].shape[1]] = Xd[mod]
+        return x
+
+    def mask_matrix(m):
+        return np.stack([m[mod] for mod in mods], axis=1).astype(np.float32)
+
+    n_tr_max = max(len(y) for y in ytr_list)
+    n_va_max = max(len(y) for y in yva_list)
+    x_tr = np.zeros((K, M, n_tr_max, f_max), np.float32)
+    m_tr = np.zeros((K, n_tr_max, M), np.float32)
+    y_tr = np.zeros((K, n_tr_max), np.float32)
+    w_tr = np.zeros((K, n_tr_max), np.float32)
+    x_va = np.zeros((K, S, M, n_va_max, f_max), np.float32)
+    m_va = np.zeros((K, S, n_va_max, M), np.float32)
+    for i, ((train_df, val_df), (Xd_tr, Xd_va, _, _)) in enumerate(zip(folds, fold_data)):
+        n_i, nv = len(ytr_list[i]), len(yva_list[i])
+        x_tr[i, :, :n_i] = stack_dict(Xd_tr, n_i)
+        m_tr[i, :n_i] = mask_matrix(get_subset_masks(masks, train_df.index))
+        y_tr[i, :n_i] = ytr_list[i]
+        w_tr[i, :n_i] = 1.0
+        val_masks = get_subset_masks(masks, val_df.index)
         for si, scenario in enumerate(scenarios):
-            m = {k: float(md[k][i, si]) for k in md}
-            if group_col and group_col in val_df.columns:
-                from pd_fusion_torch.evaluation.evaluate import _subject_metrics
+            mm = mask_matrix(apply_missingness_scenario(val_df, scenario, val_masks))
+            # per-modality zeroing of the masked inputs
+            x_va[i, si, :, :nv] = stack_dict(Xd_va, nv) * mm.T[:, :, None]
+            m_va[i, si, :nv] = mm
+    yv_rep, wv_rep = _eval_targets(yva_list, S)
 
-                subj = _subject_metrics(
-                    val_df, group_col, yva_list[i].astype(int), probs[i, si, :n_i]
-                )
-                for kk, vv in subj.items():
-                    m[f"subject_{kk}"] = vv
-            res[scenario["name"]] = m
-        metrics_all.append(res)
-        fold_preds.append((yva_list[i], probs[i, full_obs_idx, :n_i]))
-    return metrics_all, fold_preds
+    # one init generator per fold (MoE training draws nothing)
+    params_stack = _init_folds_moe([fresh_generator() for _ in range(K)], dims,
+                                   params_cfg["expert_hidden_dims"],
+                                   params_cfg["router_hidden_dims"], device)
+    t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    trained = train_moe_folds(params_stack, t(x_tr), t(m_tr), t(y_tr), t(w_tr),
+                              float(params_cfg["lr"]), int(params_cfg["epochs"]),
+                              float(params_cfg.get("weight_decay", 0.0)))
+    with torch.no_grad():
+        # [K, 1, ...] params broadcast over the scenario axis
+        probs_scen = moe_apply(map_params(trained, lambda v: v[:, None]), t(x_va), t(m_va))
+        if do_calibrate:
+            nc_max = max(len(y) for y in ycal_list)
+            x_cal = np.zeros((K, M, nc_max, f_max), np.float32)
+            m_cal = np.zeros((K, nc_max, M), np.float32)
+            for i, ((_, val_df), (_, Xd_va, Xd_cal, _)) in enumerate(zip(folds, fold_data)):
+                nc = len(ycal_list[i])
+                cal_df = calib_dfs[i] if nested else val_df
+                x_cal[i, :, :nc] = stack_dict(Xd_cal if nested else Xd_va, nc)
+                m_cal[i, :nc] = mask_matrix(get_subset_masks(masks, cal_df.index))
+            probs_cal = moe_apply(trained, t(x_cal), t(m_cal))
+            packed = _calibrated_pack(probs_scen, probs_cal, ycal_list, t(yv_rep), t(wv_rep))
+        else:
+            packed = _metrics_from_probs_packed(probs_scen, t(yv_rep), t(wv_rep))
+    return _fold_results(packed.cpu().numpy(), scenarios, group_col, [v for _, v in folds],
+                         yva_list)
+
+
+# ---------------------------------------------------------------------------
+# device GBDT: every fold's ensemble at once
+# ---------------------------------------------------------------------------
+
+
+def _run_parallel_cv_gbdt(config, folds, masks, scenarios, group_col, calib_dfs,
+                          do_calibrate, nested):
+    """Stacked device-GBDT CV: per-fold host binning (quantile edges fit on
+    each fold's own scaled train matrix, as the sequential
+    ``DeviceHistGBDT.fit``), then every fold's ensemble grows at once and
+    one traversal scores all folds x scenarios. Padding rows carry zero
+    sample weight, which the trainer ignores exactly. Scenario inputs are
+    the scaled val matrix with the masked modality blocks zeroed, then
+    binned with the fold's edges (``evaluate.predict_for_masks``);
+    calibration inputs are the un-zeroed matrix."""
+    from pd_fusion_torch.models.unimodal_gbdt import _DEVICE_PARAM_KEYS
+    from pd_fusion_torch.nn.gbdt import (
+        DeviceHistGBDT,
+        bin_features,
+        compute_base_score,
+        fit_bin_edges,
+        predict_margin,
+        train_gbdt,
+    )
+
+    device = get_device()
+    proto = DeviceHistGBDT(
+        **{k: v for k, v in config["params"].items() if k in _DEVICE_PARAM_KEYS})
+    feat_cols = get_modality_feature_cols(folds[0][0], config.get("modality", "clinical"))
+    if not feat_cols:
+        raise ValueError("No feature columns for parallel GBDT CV.")
+    assign = feature_modality_matrix(feat_cols)
+    K, S, f_dim = len(folds), len(scenarios), len(feat_cols)
+
+    bins_tr_list, y_tr_list, bases = [], [], []
+    bins_scen_list, yva_list, bins_cal_list, ycal_list = [], [], [], []
+    for fi, (train_df, val_df) in enumerate(folds):
+        val_masks = get_subset_masks(masks, val_df.index)
+        X_tr, _, scaler = preprocess_features(train_df, feat_cols)
+        X_va_raw, _, _ = preprocess_features(val_df, feat_cols, None, scaler)
+        X_tr = X_tr.astype(np.float32)
+        edges = fit_bin_edges(X_tr)
+        bins_tr_list.append(bin_features(X_tr, edges))
+        y = train_df[TARGET_COL].values.astype(np.float32)
+        y_tr_list.append(y)
+        bases.append(compute_base_score(y))
+        scen_b = []
+        for scenario in scenarios:
+            mm = get_modality_mask_matrix(
+                apply_missingness_scenario(val_df, scenario, val_masks)).astype(np.float32)
+            scen_b.append(bin_features(apply_modality_masks_np(X_va_raw, mm, assign), edges))
+        bins_scen_list.append(np.stack(scen_b))  # [S, Nv, F]
+        yva_list.append(val_df[TARGET_COL].values.astype(np.float32))
+        if do_calibrate:
+            if nested:
+                X_cal = preprocess_features(calib_dfs[fi], feat_cols, None, scaler)[0]
+                ycal_list.append(calib_dfs[fi][TARGET_COL].values.astype(np.float32))
+            else:
+                X_cal = X_va_raw
+                ycal_list.append(yva_list[-1])
+            bins_cal_list.append(bin_features(X_cal.astype(np.float32), edges))
+
+    n_max = max(len(y) for y in y_tr_list)
+    bins_tr = np.zeros((K, n_max, f_dim), np.int32)
+    y_tr = np.zeros((K, n_max), np.float32)
+    w_tr = np.zeros((K, n_max), np.float32)
+    for i, (b, y) in enumerate(zip(bins_tr_list, y_tr_list)):
+        bins_tr[i, : len(y)] = b
+        y_tr[i, : len(y)] = y
+        w_tr[i, : len(y)] = 1.0
+    # the rows to score, one block per fold: every scenario's val rows,
+    # then the calibration rows
+    nv_max = max(len(y) for y in yva_list)
+    nc_max = max(len(y) for y in ycal_list) if do_calibrate else 0
+    bins_ev = np.zeros((K, S * nv_max + nc_max, f_dim), np.int32)
+    for i, a in enumerate(bins_scen_list):
+        bins_ev[i, : S * nv_max].reshape(S, nv_max, f_dim)[:, : a.shape[1]] = a
+        if do_calibrate:
+            bins_ev[i, S * nv_max: S * nv_max + len(ycal_list[i])] = bins_cal_list[i]
+    yv_rep, wv_rep = _eval_targets(yva_list, S)
+
+    t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    base = t(np.array(bases, np.float32))
+    trees = train_gbdt(t(bins_tr), t(y_tr), t(w_tr), base, **proto.hparams())
+    probs = torch.sigmoid(predict_margin(trees, t(bins_ev), base, depth=proto.max_depth))
+    probs_scen = probs[:, : S * nv_max].reshape(K, S, nv_max)
+    if do_calibrate:
+        packed = _calibrated_pack(probs_scen, probs[:, S * nv_max:], ycal_list, t(yv_rep),
+                                  t(wv_rep))
+    else:
+        packed = _metrics_from_probs_packed(probs_scen, t(yv_rep), t(wv_rep))
+    return _fold_results(packed.cpu().numpy(), scenarios, group_col, [v for _, v in folds],
+                         yva_list)
 
 
 # ---------------------------------------------------------------------------
@@ -542,13 +833,14 @@ def _run_parallel_cv_mil(config, folds, masks, scenarios, group_col, calib_dfs,
     kept_val_probs = buf[:, :nv_w]
     kept_cal_probs = buf[:, nv_w:]
 
-    probs, yv, wv, nv_max = _assemble_mil_scenario_probs(
+    probs, yv, wv, _ = _assemble_mil_scenario_probs(
         fold_rows, kept_val_probs, scenarios, missing_prob
     )
 
     if do_calibrate:
-        # calibration-set probs assembled the same way predict_proba would
-        # (missing bags / masked mri -> missing_prob constants)
+        # host isotonic, as the JAX package's MIL branch: calibration-set
+        # probs assembled the way predict_proba would (missing bags / masked
+        # mri -> missing_prob constants)
         from pd_fusion_torch.models.calibrate import IsotonicRegression
 
         for i, r in enumerate(fold_rows):
@@ -565,27 +857,5 @@ def _run_parallel_cv_mil(config, folds, masks, scenarios, group_col, calib_dfs,
         torch.as_tensor(probs, device=device), torch.as_tensor(yv, device=device),
         torch.as_tensor(wv, device=device),
     ).cpu().numpy()
-    S = len(scenarios)
-    md, probs_out = dev_metrics.unpack_metrics_and_probs(packed, (K, S), (K, S, nv_max))
-
-    metrics_all, fold_preds = [], []
-    full_obs_idx = next(
-        (i for i, s in enumerate(scenarios) if s["name"] == "full_observation"), 0
-    )
-    for i, r in enumerate(fold_rows):
-        nv = len(r["y_va"])
-        res = {}
-        for si, scenario in enumerate(scenarios):
-            m = {k: float(md[k][i, si]) for k in md}
-            if group_col and group_col in r["val_df"].columns:
-                from pd_fusion_torch.evaluation.evaluate import _subject_metrics
-
-                subj = _subject_metrics(
-                    r["val_df"], group_col, r["y_va"].astype(int), probs_out[i, si, :nv]
-                )
-                for kk, vv in subj.items():
-                    m[f"subject_{kk}"] = vv
-            res[scenario["name"]] = m
-        metrics_all.append(res)
-        fold_preds.append((r["y_va"], probs_out[i, full_obs_idx, :nv]))
-    return metrics_all, fold_preds
+    return _fold_results(packed, scenarios, group_col, [r["val_df"] for r in fold_rows],
+                         [r["y_va"] for r in fold_rows])

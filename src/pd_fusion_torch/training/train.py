@@ -5,9 +5,9 @@ per-family preprocessing and the optional isotonic calibration wrap.
 Returns ``(model, prep_info)``; prep_info is what downstream code
 dispatches on:
   tuple (imputer, scaler, feature_cols) -> flat-feature families
+  dict  {mod: (imputer, scaler, feats)} -> MoE
   tuple ("mil", mil_col)                -> MIL families
-The ``moe``, ``unimodal_gbdt`` and ``mil_attention_ft`` families raise
-``NotImplementedError`` naming their ROADMAP items.
+``mil_attention_ft`` raises ``NotImplementedError`` naming its ROADMAP item.
 """
 import logging
 from pathlib import Path
@@ -103,7 +103,7 @@ def train_pipeline(config, df_train, df_val, mask_train, mask_val):
     calibrate_X_val = X_val
     calibrate_masks = None
 
-    if model_type == "unimodal_mlp":
+    if model_type in ("unimodal_gbdt", "unimodal_mlp"):
         modality = config.get("modality", "clinical")
         mod_features = get_modality_feature_cols(df_train, modality)
         if not mod_features:
@@ -117,12 +117,17 @@ def train_pipeline(config, df_train, df_val, mask_train, mask_val):
             prep_info = (None, None, mod_features)
             calibrate_X_val = np.zeros((len(y_val), 1))
         else:
-            from pd_fusion_torch.models.fusion_late import LateFusionModel
-
             # the scaler is fitted on the modality's own columns
             X_tr_mod, imp, scl = preprocess_features(df_train, mod_features)
             X_va_mod, _, _ = preprocess_features(df_val, mod_features, imp, scl)
-            model = LateFusionModel(len(mod_features), config["params"])
+            if model_type == "unimodal_gbdt":
+                from pd_fusion_torch.models.unimodal_gbdt import UnimodalGBDT
+
+                model = UnimodalGBDT(modality, config["params"])
+            else:
+                from pd_fusion_torch.models.fusion_late import LateFusionModel
+
+                model = LateFusionModel(len(mod_features), config["params"])
             model.train(X_tr_mod, y_train, (X_va_mod, y_val))
             prep_info = (imp, scl, mod_features)
             calibrate_X_val = X_va_mod
@@ -151,6 +156,28 @@ def train_pipeline(config, df_train, df_val, mask_train, mask_val):
         model = ModalityDropoutModel(mod_dims, config["params"])
         model.train(X_train, y_train, (X_val, y_val))
         calibrate_masks = mask_val
+
+    elif model_type == "moe":
+        from pd_fusion_torch.models.moe import MoEModel
+
+        # per-modality imputer and scaler; a modality without features is
+        # left out, and the routing masks are the natural ones
+        moe_dims, X_tr_dict, X_va_dict, moe_prep = {}, {}, {}, {}
+        for mod in MODALITIES:
+            feats = get_modality_feature_cols(df_train, mod)
+            if not feats:
+                continue
+            X_tr_dict[mod], imp_m, scl_m = preprocess_features(df_train, feats)
+            X_va_dict[mod], _, _ = preprocess_features(df_val, feats, imp_m, scl_m)
+            moe_dims[mod] = len(feats)
+            moe_prep[mod] = (imp_m, scl_m, feats)
+        mask_tr = np.stack([mask_train[m] for m in moe_dims], axis=1).astype(np.float32)
+        mask_va = np.stack([mask_val[m] for m in moe_dims], axis=1).astype(np.float32)
+        model = MoEModel(moe_dims, config["params"])
+        model.train(X_tr_dict, y_train, mask_tr, (X_va_dict, y_val, mask_va))
+        prep_info = moe_prep
+        calibrate_X_val = X_va_dict
+        calibrate_masks = mask_va
 
     else:
         raise ValueError(f"Unknown model type: {model_type}")

@@ -7,17 +7,21 @@ so it also runs on a GPU machine without it:
     python -m pytest tests/test_torch_port_cuda.py -q
 
 The checks and their tolerances live in
-``pd_fusion_torch/ops/attention_pool_checks.py`` (kernel K1) and
-``pd_fusion_torch/nn/trainer_checks.py`` (the fold-batched tabular
-trainer and the MLP forward, card against CPU), which ``chip_smoke.py``
-runs too.
+``pd_fusion_torch/ops/attention_pool_checks.py`` (kernel K1),
+``pd_fusion_torch/nn/trainer_checks.py`` (the fold-batched tabular and
+MoE trainers and the MLP forward, card against CPU),
+``pd_fusion_torch/ops/isotonic_checks.py`` (device isotonic against the
+host fit) and ``pd_fusion_torch/nn/gbdt_checks.py`` (GBDT determinism,
+fold batching, card against CPU with the split-optimality audit,
+TreeSHAP), which ``chip_smoke.py`` runs too.
 """
 import pytest
 import torch
 
-from pd_fusion_torch.nn import trainer_checks
+from pd_fusion_torch.nn import gbdt_checks, trainer_checks
 from pd_fusion_torch.ops import attention_pool as ap
 from pd_fusion_torch.ops import attention_pool_checks as checks
+from pd_fusion_torch.ops import isotonic_checks
 
 pytestmark = pytest.mark.cuda
 
@@ -64,3 +68,41 @@ def test_fold_batched_trainer_on_the_card_matches_the_cpu(cuda, per_sample):
     """Two epochs at the bench frame's widths, the same explicit draws."""
     inputs = trainer_checks.trainer_inputs(epochs=2, per_sample=per_sample)
     trainer_checks.compare_card_with_cpu(inputs, trainer_checks.SHORT_ATOL, device=cuda)
+
+
+def test_device_isotonic_on_the_card_matches_the_host_fit(cuda):
+    n_sets, _ = isotonic_checks.check_all(cuda)
+    assert n_sets == 24
+
+
+def test_moe_trainer_on_the_card_matches_the_cpu(cuda):
+    inputs = trainer_checks.moe_inputs(K=3, n=200)
+    trainer_checks.compare_moe_card_with_cpu(inputs, device=cuda, epochs=20)
+
+
+GBDT_HP = dict(n_rounds=12, depth=4, lr=0.1, lam=0.0, min_child_weight=1e-3,
+               min_child_samples=20.0)
+
+
+def test_gbdt_onehot_fits_on_the_card_are_bit_identical(cuda):
+    bins, y, w, base = gbdt_checks.cv_like_inputs(K=3, n=300)
+    gbdt_checks.check_two_fits_identical(bins, y, w, base, dict(GBDT_HP, hist_mode="onehot"), cuda)
+
+
+def test_gbdt_fold_batched_fit_on_the_card_equals_per_fold_fits(cuda):
+    bins, y, w, base = gbdt_checks.cv_like_inputs(K=3, n=300)
+    assert gbdt_checks.check_fold_batched_equals_per_fold(
+        bins, y, w, base, dict(GBDT_HP, hist_mode="onehot"), cuda)
+
+
+@pytest.mark.parametrize("hist_mode", ["onehot", "scatter"])
+def test_gbdt_on_the_card_matches_the_cpu_or_passes_the_audit(cuda, hist_mode):
+    bins, y, w, base = gbdt_checks.cv_like_inputs(K=1, n=300)
+    gbdt_checks.compare_card_with_cpu(bins[0], y[0], w[0], base[0],
+                                      dict(GBDT_HP, hist_mode=hist_mode), cuda)
+
+
+def test_treeshap_on_the_card_matches_the_cpu(cuda):
+    bins, y, w, base = gbdt_checks.cv_like_inputs(K=1, n=300)
+    trees = gbdt_checks.fit(bins[0], y[0], w[0], base[0], dict(GBDT_HP, hist_mode="onehot"), cuda)
+    gbdt_checks.compare_shap_card_with_cpu(trees, bins[0], base[0], GBDT_HP["depth"], cuda)

@@ -20,8 +20,12 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m in ("jax", "pd_fusion") or m.startswith(("jax.", "jaxlib", "pd_fusion.")))
-print(len(names), bad)
+print(len(names), bad, " ".join(names))
 """
+
+# the modules of the calibrated, MoE and GBDT slice, each imported above
+SLICE_MODULES = ("ops.isotonic", "ops.isotonic_checks", "nn.moe", "models.moe", "nn.gbdt",
+                 "nn.gbdt_checks", "models.unimodal_gbdt", "ops.treeshap")
 
 
 def test_port_imports_without_jax_or_jax_package():
@@ -29,9 +33,12 @@ def test_port_imports_without_jax_or_jax_package():
     out = subprocess.run(
         [sys.executable, "-c", _IMPORT_ALL], capture_output=True, text=True, timeout=120,
         check=True,
-    ).stdout.split(maxsplit=1)
-    assert int(out[0]) >= 30  # every module of the port was imported
-    assert out[1].strip() == "[]"
+    ).stdout.strip()
+    count, rest = out.split(maxsplit=1)
+    bad, names = rest.split("] ", 1)
+    assert int(count) >= 38  # every module of the port was imported
+    assert bad + "]" == "[]"
+    assert {f"pd_fusion_torch.{m}" for m in SLICE_MODULES} <= set(names.split())
 
 
 def _imported_modules(path: Path):

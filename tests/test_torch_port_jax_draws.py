@@ -7,15 +7,36 @@ and ``pd_fusion/nn/mlp.py`` do. ``use_jax_draws`` makes a whole port run
 consume the JAX package's seed chain: every ``fresh_generator`` of the
 tabular models and the CV engine hands out the JAX key that
 ``fresh_key`` would, ``mlp_init`` draws JAX's initial weights from it,
-and the trainers' draw functions make JAX's shuffles, modality keeps and
-dropout keeps. A port run then reproduces the JAX run up to rounding.
+``moe_init`` likewise draws JAX's MoE weights, and the trainers' draw
+functions make JAX's shuffles, modality keeps and dropout keeps. A port
+run then reproduces the JAX run up to rounding.
 """
+import contextlib
+
 import jax
 import numpy as np
 import torch
 
 from pd_fusion.nn import mlp as JM
+from pd_fusion.nn import moe as JMoE
 from pd_fusion.utils import seed as jseed
+
+
+@contextlib.contextmanager
+def one_cpu_thread():
+    """Torch and every OpenMP pool (torch's, scikit-learn's) on one thread.
+    The suite runs its files in parallel worker processes; the port's CPU
+    paths are many tiny ops, and thread pools that contend for the same
+    cores make them an order of magnitude slower."""
+    from threadpoolctl import threadpool_limits
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with threadpool_limits(1):
+            yield
+    finally:
+        torch.set_num_threads(n)
 
 
 def dropout_keeps(key, rate, shapes):
@@ -68,7 +89,9 @@ class JaxKey:
 def use_jax_draws(monkeypatch):
     from pd_fusion_torch.experiments import run_experiment as TR
     from pd_fusion_torch.models import fusion_late, fusion_moddrop
+    from pd_fusion_torch.models import moe as moe_model
     from pd_fusion_torch.nn import mlp as TM
+    from pd_fusion_torch.nn import moe as TMoE
     from pd_fusion_torch.nn import trainer as TT
     from pd_fusion_torch.parallel import cv_engine
     from pd_fusion_torch.utils.seed import set_seed
@@ -88,6 +111,11 @@ def use_jax_draws(monkeypatch):
         params = jax.tree_util.tree_map(np.asarray, JM.mlp_init(g.key, list(dims)))
         return TM.mlp_params_from_jax(params, device=device)
 
+    def init_moe(g, dims, expert_hidden, router_hidden, device=None):
+        params = jax.tree_util.tree_map(np.asarray, JMoE.moe_init(
+            g.key, dict(dims), list(expert_hidden), list(router_hidden)))
+        return TMoE.moe_params_from_jax(params, device=device)
+
     def draw_fullbatch(g, epochs, n, hidden, dropout, device):
         return to_torch(fullbatch_draws(g.key, epochs, n, hidden, dropout), device)
 
@@ -96,10 +124,12 @@ def use_jax_draws(monkeypatch):
             g.key, epochs, n, bs, n_mod, hidden, dropout, md_rate, per_sample))
 
     monkeypatch.setattr(TR, "set_seed", both_set_seed)
-    for mod in (fusion_late, fusion_moddrop, cv_engine):
+    for mod in (fusion_late, fusion_moddrop, moe_model, cv_engine):
         monkeypatch.setattr(mod, "fresh_generator", lambda device=None: JaxKey(jseed.fresh_key()))
     for mod in (TM, fusion_late, fusion_moddrop):
         monkeypatch.setattr(mod, "mlp_init", init)
+    for mod in (TMoE, moe_model):
+        monkeypatch.setattr(mod, "moe_init", init_moe)
     monkeypatch.setattr(TT, "draw_fullbatch", draw_fullbatch)
     monkeypatch.setattr(TT, "draw_minibatch", draw_minibatch)
 

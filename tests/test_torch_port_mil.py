@@ -15,6 +15,7 @@ import jax.numpy as jnp
 
 from pd_fusion.nn import mil as J
 from pd_fusion_torch.nn import mil as T
+from test_torch_port_jax_draws import one_cpu_thread
 
 D, L, H, A = 16, 14, 16, 8
 
@@ -22,6 +23,8 @@ D, L, H, A = 16, 14, 16, 8
 @pytest.fixture(autouse=True)
 def _cpu(monkeypatch):
     monkeypatch.setenv("PD_FUSION_TORCH_DEVICE", "cpu")
+    with one_cpu_thread():
+        yield
 
 
 def _bags(n, seed, signal=2.5):

@@ -27,7 +27,7 @@ from pd_fusion_torch.data.ppmi_loader import generate_synthetic_data
 from pd_fusion_torch.experiments import run_experiment as TR
 from pd_fusion_torch.paths import ROOT_DIR
 from pd_fusion_torch.utils.seed import set_seed
-from test_torch_port_jax_draws import use_jax_draws
+from test_torch_port_jax_draws import one_cpu_thread, use_jax_draws
 
 QUICKSTART = "configs/quickstart.yaml"
 SMALL = {"hidden_dims": [12, 6], "dropout": 0.2, "lr": 0.03, "batch_size": 32, "epochs": 10,
@@ -38,8 +38,11 @@ SEAM = dict(SMALL, lr=0.02, epochs=6)
 @pytest.fixture(autouse=True)
 def _cpu(monkeypatch):
     monkeypatch.setenv("PD_FUSION_TORCH_DEVICE", "cpu")
-    # the JAX package's host-isotonic arm, the one the port has
+    # both packages on their host-isotonic arm (the device arms are held
+    # in test_torch_port_calibrated_cv.py)
     monkeypatch.setenv("PD_FUSION_HOST_ISOTONIC", "1")
+    with one_cpu_thread():
+        yield
 
 
 def _frame(n=200):

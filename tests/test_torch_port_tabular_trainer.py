@@ -19,7 +19,12 @@ from pd_fusion.nn import mlp as JM
 from pd_fusion.nn import trainer as JT
 from pd_fusion_torch.nn import mlp as TM
 from pd_fusion_torch.nn import trainer as TT
-from test_torch_port_jax_draws import dropout_keeps, fullbatch_draws, minibatch_draws
+from test_torch_port_jax_draws import (
+    dropout_keeps,
+    fullbatch_draws,
+    minibatch_draws,
+    one_cpu_thread,
+)
 
 F, HID = 9, [8, 6]
 ASSIGN = np.zeros((F, 3), np.float32)
@@ -29,6 +34,8 @@ ASSIGN[:4, 0] = ASSIGN[4:6, 1] = ASSIGN[6:, 2] = 1.0
 @pytest.fixture(autouse=True)
 def _cpu(monkeypatch):
     monkeypatch.setenv("PD_FUSION_TORCH_DEVICE", "cpu")
+    with one_cpu_thread():
+        yield
 
 
 def _t(a):

@@ -8,7 +8,8 @@
 Phases; any failure exits non-zero before the final line:
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build kernel K1 (``csrc/attention_pool.cu``) from the repo's sources
-   with nvcc (set-up time and the ``-Xptxas=-v`` report, printed; the
+   with nvcc, and the host IO library with g++, in parallel (set-up time
+   and the ``-Xptxas=-v`` report, printed; the
    report must show no spills); ``--compare-with`` builds that source too,
    in parallel, with the same flags and the C interface K1 had first
    (scores, mask, h, pooled, weights, B, L, H, stream);
@@ -84,10 +85,37 @@ Phases; any failure exits non-zero before the final line:
    histograms apart; the 5-fold CV calibrated and not; ``predict_margin``;
    the quickstart and its ``evaluate``; TreeSHAP card vs CPU with
    additivity, and a chunk profiled. K1 must launch 0 times in 10-12;
-13. a JSON line with each device program's host and device time and
+13. the host IO library (``csrc/pd_io.cpp``, built with g++ in phase 2
+   beside K1): its build time and the inflate library linked; the host's
+   cores and whether pyarrow is installed;
+14. seeded synthetic T1w-like volumes (``imaging/embed_checks.py``): 48
+   subjects x 2 sessions, 176x256x256 int16 with a ``scl_slope``, session
+   1 ``.nii.gz`` (gzip level 1) and session 2 ``.nii``; PD subjects carry
+   a darker deep nucleus;
+15. ResNet-50 at full width (224^2, BN folded) on the card against the CPU
+   on the slices of two volumes: float32 with TF32 off within
+   ``embed_checks.F32_REL`` of the scale, bfloat16 by cosine;
+16. the MIL bag builder (``python -m
+   pd_fusion_torch.scripts.build_resnet2d_mil_embeddings`` on
+   ``configs/data_openneuro_ds001907_resnet2d_mil.yaml``'s settings:
+   ResNet-50, 160^3, axis 2, 48 slices, 224^2) over the 96 volumes: wall,
+   volumes/s, images/s, ``LAST_PROFILE``, peak device memory; again under
+   ``torch.profiler`` (device time, busy share, TFLOP/s); flush widths
+   4, 8, 16, 32 in turns (the device program, then the whole pipeline);
+   float32, bfloat16 and TF32 in turns (TF32 as a measurement only); the
+   flush's device programs profiled;
+17. the MIL CV on those bags through the CLI (a copy of
+   ``configs/openneuro_ds001907_resnet2d_mil.yaml`` pointed at them): 7
+   scenarios, K1 launched, the plain pool never; the AUC printed;
+18. the mean-pooled builder (ResNet-18, 24 slices) and the CLI's CV on
+   ``configs/openneuro_ds001907_resnet2d.yaml`` (calibrated, nested
+   ``fusion_moddrop``; the clinical and DaT groups are empty);
+19. the 3-axis TTA bags (``..._mil_multi.yaml``: 3 x 24 slices, ``tta:
+   2``) on 16 volumes, volume 0 against the CPU pipeline;
+20. a JSON line with each device program's host and device time and
    launches a step; one with each path's wall time, busy share and AUC;
-   one with each kernel's launches, error and times (B=16 and B=80, and
-   the launch floor); the card line again; then ``{"ok": true,
+   one with each kernel's launches (by path), error and times (B=16 and
+   B=80, and the launch floor); the card line again; then ``{"ok": true,
    "device": {...}}`` as the last line.
 
 Needs a CUDA device and the repo around it; it imports nothing of JAX.
@@ -971,6 +999,439 @@ def check_gbdt(torch, np, yaml, ap, cli, tmp: Path):
     return paths, programs
 
 
+# ---------------------------------------------------------------------------
+# the imaging embed path (phases 13-19)
+# ---------------------------------------------------------------------------
+
+H100_BF16_FLOPS = 989e12  # dense bf16 tensor cores, H100 SXM data sheet
+H100_TF32_FLOPS = 495e12
+EMBED_SUBJECTS = 48  # x 2 sessions = 96 volumes
+VOLUME_SHAPE = (176, 256, 256)  # a brain-extracted T1w at 1 mm, int16
+VOLUME_SLOPE = 0.5
+FLUSH_WIDTHS = (4, 8, 16, 32)
+TTA_SUBJECTS = 8  # phase 19: 8 subjects x 2 sessions through the 3-axis TTA bags
+MIL_DATA = ROOT / "configs" / "data_openneuro_ds001907_resnet2d_mil.yaml"
+RESNET2D_CONFIG = ROOT / "configs" / "openneuro_ds001907_resnet2d.yaml"
+MULTI_CONFIG = ROOT / "configs" / "openneuro_ds001907_resnet2d_mil_multi.yaml"
+
+
+def script_argv(emb_cfg, manifest: Path, out_dir: Path, multi_axis_flags=True):
+    """The builder script's flags for a data config's ``resnet2d_config``."""
+    argv = ["--manifest", str(manifest), "--out-dir", str(out_dir),
+            "--backbone", emb_cfg["backbone"],
+            "--target-shape", *map(str, emb_cfg["target_shape"]),
+            "--input-size", str(emb_cfg["input_size"]), "--batch-size", str(emb_cfg["batch_size"]),
+            "--tta", str(emb_cfg["tta"]), "--max-rotation-deg", str(emb_cfg["max_rotation_deg"]),
+            "--max-translation", str(emb_cfg["max_translation"]),
+            "--intensity-scale", str(emb_cfg["intensity_scale"]),
+            "--intensity-shift", str(emb_cfg["intensity_shift"]),
+            "--noise-std", str(emb_cfg["noise_std"])]
+    if "slice_axes" in emb_cfg:
+        argv += ["--slice-axes", *map(str, emb_cfg["slice_axes"]),
+                 "--slice-counts", *map(str, emb_cfg["slice_counts"])]
+    else:
+        argv += ["--slice-axis", str(emb_cfg["slice_axis"]),
+                 "--slice-count", str(emb_cfg["slice_count"])]
+    return argv
+
+
+def data_config_copy(yaml, config: Path, tmp: Path, manifest: Path, cache: Path, name: str):
+    """A copy of ``config`` whose data config points at ``manifest`` and
+    ``cache``; the settings stay the repo's. -> (config path, the data
+    config's resnet2d_config)."""
+    cfg = yaml.safe_load(config.read_text())
+    data_cfg = yaml.safe_load((ROOT / cfg["data_config"]).read_text())
+    data_cfg.update(manifest_path=str(manifest), resnet2d_cache_dir=str(cache))
+    (tmp / f"data_{name}.yaml").write_text(yaml.safe_dump(data_cfg))
+    cfg["data_config"] = str(tmp / f"data_{name}.yaml")
+    path = tmp / f"{name}.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    return path, data_cfg["resnet2d_config"]
+
+
+@contextlib.contextmanager
+def timed(torch, module, name, stages, key):
+    """``module.name`` timed into ``stages[key]`` (seconds, synchronised)."""
+    fn = getattr(module, name)
+
+    def wrapper(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            torch.cuda.synchronize()
+            stages[key] = stages.get(key, 0.0) + time.perf_counter() - t0
+
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def build_with_script(torch, script, argv, emb_cfg):
+    """One run of a builder script (``main(argv)``), its config checked to
+    be the data config's (so that the config's loader finds the artifact).
+    -> (wall s, result, LAST_PROFILE with the run's stages: ``setup_s``
+    (backbone init or load), ``pipeline_s`` and ``rest_s`` (writing the
+    artifact), peak device bytes above those allocated before)."""
+    from pd_fusion_torch.data import openneuro_features
+    from pd_fusion_torch.imaging import pipeline
+
+    if script.config_from_args(script.parse_args(argv)) != emb_cfg:
+        raise RuntimeError(f"{script.__name__}: the flags do not give the data config {emb_cfg}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    stages = {}
+    t0 = time.perf_counter()
+    with timed(torch, openneuro_features, "_resnet_setup", stages, "setup_s"), \
+            timed(torch, pipeline, "run_resnet_embedding_pipeline", stages, "pipeline_s"):
+        out = script.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stages["rest_s"] = wall - stages["setup_s"] - stages["pipeline_s"]
+    return (wall, out, {**pipeline.LAST_PROFILE, **stages},
+            torch.cuda.max_memory_allocated() - base)
+
+
+def embed_program(pipeline, size, folded, slices, mean, std, arch, per_slice=True):
+    """The flush's device work as the pipeline issues it, on [W, L, h, w]
+    float32 slices on the card, at ``size``^2 inputs."""
+    return lambda: pipeline._embed(folded, slices, mean, std, arch, size, per_slice)
+
+
+def embed_bound(flops, n_bytes, peak_flops):
+    """Least time (us) for ``flops`` at ``peak_flops`` against ``n_bytes``
+    (inputs read once, outputs written once) at HBM rate -> (us, bound by)."""
+    t_ops = flops / peak_flops * 1e6
+    t_bytes = n_bytes / H100_BYTES_PER_S * 1e6
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def prep_slices(np, paths, target, axes, counts):
+    """The native prep of ``paths`` on the host threads -> [n, L, h, w] float32."""
+    from pd_fusion_torch.imaging.pipeline import VolumePrefetcher, make_slices_loader
+
+    loader = make_slices_loader(target, axes, counts)
+    return np.stack([v for _, v in VolumePrefetcher(paths, loader, depth=8)])
+
+
+def run_embed_path(torch, np, yaml, ap, cli, tmp: Path):
+    """Phases 14-19: synthetic volumes; ResNet-50 card vs CPU; the MIL bag
+    builder at full width with its profile, flush widths and dtypes; the
+    MIL CV on the built bags; the mean-pooled builder and its CV; the
+    3-axis TTA bags. -> (paths, programs, K1 launches of the MIL CV)."""
+    from pd_fusion_torch.imaging import embed_checks as ec
+    from pd_fusion_torch.imaging import pipeline
+    from pd_fusion_torch.nn.resnet import load_backbone, params_to
+    from pd_fusion_torch.scripts import build_resnet2d_embeddings as mean_script
+    from pd_fusion_torch.scripts import build_resnet2d_mil_embeddings as mil_script
+
+    paths, programs = [], {}
+    half = np.full(3, 0.5, np.float32)
+
+    # phase 14: seeded synthetic volumes
+    manifest, rows, write_s = ec.synthetic_t1w_dataset(
+        tmp / "volumes", EMBED_SUBJECTS, shape=VOLUME_SHAPE, slope=VOLUME_SLOPE)
+    gz = [r for r in rows if r["t1wbrain_path"].endswith(".gz")]
+    sizes = [Path(r["t1wbrain_path"]).stat().st_size for r in rows]
+    print(f"volumes: {len(rows)} ({len(gz)} .nii.gz at gzip level 1, {len(rows) - len(gz)} "
+          f".nii), {VOLUME_SHAPE} int16, scl_slope {VOLUME_SLOPE}, {sum(sizes) / 2**30:.3f} GiB "
+          f"on disk, written in {write_s:.3f} s; PD subjects {sum(r['label'] for r in gz)} of "
+          f"{len(gz)}")
+
+    mil_cfg = yaml.safe_load(MIL_DATA.read_text())["resnet2d_config"]
+    target = tuple(mil_cfg["target_shape"])
+    L = int(mil_cfg["slice_count"])
+    size = int(mil_cfg["input_size"])
+
+    # phase 15: ResNet-50 at full width, card against CPU on two volumes' slices
+    params50, _, _ = load_backbone("resnet50", seed=0)
+    two = prep_slices(np, [rows[0]["t1wbrain_path"], rows[1]["t1wbrain_path"]], target,
+                      [mil_cfg["slice_axis"]], [L]).reshape(-1, *target[:2])
+    t0 = time.perf_counter()
+    cmp = ec.compare_card_with_cpu(params50, two, "resnet50", size, half, half, DEV)
+    print(f"ResNet-50 ({size}^2, BN folded, random init seed 0) card vs CPU on {len(two)} slices of "
+          f"two volumes: float32 (TF32 off) max abs err {cmp['max_abs_err']:.3e} of max "
+          f"|emb| {cmp['scale']:.3e} (rel {cmp['rel_err']:.3e}, bound {ec.F32_REL}); bfloat16 "
+          f"min cosine {cmp['bf16_min_cos']:.6f} (bound {ec.BF16_COS}), max abs err "
+          f"{cmp['bf16_max_abs_err']:.3e}; {time.perf_counter() - t0:.3f} s")
+
+    # phase 16: the MIL bag builder through the port's script, at full width
+    cache = tmp / "embeddings_resnet2d"
+    argv = script_argv(mil_cfg, manifest, cache)
+    wall, bag_path, prof, peak = build_with_script(torch, mil_script, argv, mil_cfg)
+    n_img = len(rows) * L
+    print(f"MIL bag build (python -m pd_fusion_torch.scripts.build_resnet2d_mil_embeddings, "
+          f"ResNet-50, {target}, axis {mil_cfg['slice_axis']}, {L} slices, {size}^2, float32, "
+          f"{pipeline.SUBJECTS_PER_CALL} subjects a flush): wall {wall:.3f} s for {len(rows)} "
+          f"volumes ({len(rows) / wall:.2f} volumes/s, {n_img / wall:.1f} images/s); "
+          f"LAST_PROFILE {json.dumps({k: round(v, 6) for k, v in prof.items()})}; peak device "
+          f"memory {peak / 2**30:.3f} GiB")
+    with np.load(bag_path, allow_pickle=True) as bags:
+        emb = bags["embeddings"]
+        if emb.shape != (len(rows), L, 2048) or not np.isfinite(emb).all():
+            raise RuntimeError(f"the MIL bags are {emb.shape}, finite {np.isfinite(emb).all()}")
+    folded = pipeline.fold_backbone(params_to(params50, device=DEV), "resnet50")
+    flops_img = ec.resnet_flops(folded, "resnet50", size)
+    p_wall, prof_p = profiled(torch, lambda: mil_script.main(
+        script_argv(mil_cfg, manifest, tmp / "embeddings_profiled")))
+    rows_p = device_rows(torch, prof_p.key_averages())
+    dev_ms = sum(_dev_ms(e) for e in rows_p)
+    launches = sum(e.count for e in rows_p)
+    tflops = flops_img * n_img / (dev_ms / 1e3) / 1e12
+    print(f"  under torch.profiler: wall {p_wall:.3f} ms, device {dev_ms:.3f} ms (busy share "
+          f"{dev_ms / p_wall:.4f}), {launches} device launches; {flops_img / 1e9:.3f} GFLOP an "
+          f"image, {tflops:.2f} TFLOP/s over the device time ({tflops * 1e12 / H100_F32_FLOPS:.4f} "
+          f"of the 67 TFLOP/s float32 peak, {tflops * 1e12 / H100_BF16_FLOPS:.4f} of 989 bf16)")
+    rows_p.sort(key=_dev_ms, reverse=True)
+    for e in rows_p[:6]:
+        print(f"  {_dev_ms(e):10.3f} ms  x{e.count:<5d} {e.key[:70]}")
+
+    # flush widths in turns: the device program alone, then the whole pipeline
+    mean_t = torch.as_tensor(half, device=DEV)
+    host32 = prep_slices(np, [r["t1wbrain_path"] for r in rows[:max(FLUSH_WIDTHS)]], target,
+                         [mil_cfg["slice_axis"]], [L])
+    on_card = torch.as_tensor(host32, device=DEV)
+    warm_clocks(torch)
+    per_width = {w: [] for w in FLUSH_WIDTHS}
+    with torch.inference_mode():
+        for order in (FLUSH_WIDTHS, FLUSH_WIDTHS[::-1]):
+            for w in order:
+                fn = embed_program(pipeline, size, folded, on_card[:w], mean_t, mean_t, "resnet50")
+                fn()
+                per_width[w].append(_median_event_ms(torch, fn, 3))
+    ips = {w: w * L / (sum(t) / len(t) / 1e3) for w, t in per_width.items()}
+    for w in FLUSH_WIDTHS:
+        print(f"  flush width {w} ({w * L} images, float32): device {per_width[w][0]:.3f} / "
+              f"{per_width[w][1]:.3f} ms in turns, {ips[w]:.1f} images/s, "
+              f"{flops_img * ips[w] / 1e12:.2f} TFLOP/s")
+    walls = {w: [] for w in FLUSH_WIDTHS}
+    paths_in = [r["t1wbrain_path"] for r in rows]
+    ids = [r["subject_id"] for r in rows]
+    for order in (FLUSH_WIDTHS, FLUSH_WIDTHS[::-1]):
+        for w in order:
+            t0 = time.perf_counter()
+            pipeline.run_resnet_embedding_pipeline(
+                paths_in, ids, params50, half, half, arch="resnet50", target_shape=target,
+                axes=[mil_cfg["slice_axis"]], counts=[L], input_size=size, per_slice=True,
+                progress=False, subjects_per_call=w)
+            walls[w].append(time.perf_counter() - t0)
+    for w in FLUSH_WIDTHS:
+        print(f"  flush width {w}: pipeline wall {walls[w][0]:.3f} / {walls[w][1]:.3f} s in turns "
+              f"({len(rows) / (sum(walls[w]) / 2):.2f} volumes/s)")
+    chosen = min(FLUSH_WIDTHS, key=lambda w: sum(walls[w]))
+    print(f"  flush width with the least pipeline wall: {chosen}; with the most device images/s: "
+          f"{max(FLUSH_WIDTHS, key=ips.get)}; SUBJECTS_PER_CALL is {pipeline.SUBJECTS_PER_CALL}")
+
+    # compute dtypes at the pipeline's flush width, in turns: float32, bfloat16, TF32
+    W = pipeline.SUBJECTS_PER_CALL
+    x = on_card[:W]
+    folded16 = pipeline.fold_backbone(params_to(params50, device=DEV), "resnet50", "bfloat16")
+
+    def tf32():
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            return pipeline._embed(folded, x, mean_t, mean_t, "resnet50", size, True)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+
+    arms = {"float32": embed_program(pipeline, size, folded, x, mean_t, mean_t, "resnet50"),
+            "bfloat16": embed_program(pipeline, size, folded16, x, mean_t, mean_t, "resnet50"),
+            "tf32": tf32}
+    dtype_ms = {k: [] for k in arms}
+    with torch.inference_mode():
+        for order in (list(arms), list(arms)[::-1]):
+            for k in order:
+                arms[k]()
+                dtype_ms[k].append(_median_event_ms(torch, arms[k], 3))
+    peaks = {"float32": H100_F32_FLOPS, "bfloat16": H100_BF16_FLOPS, "tf32": H100_TF32_FLOPS}
+    for k, t in dtype_ms.items():
+        ms = sum(t) / 2
+        print(f"  {k} at width {W}: device {t[0]:.3f} / {t[1]:.3f} ms in turns, "
+              f"{W * L / ms * 1e3:.1f} images/s, {flops_img * W * L / ms / 1e9:.2f} "
+              f"TFLOP/s ({flops_img * W * L / ms * 1e3 / peaks[k]:.4f} of its peak)")
+    t0 = time.perf_counter()
+    pipeline.run_resnet_embedding_pipeline(
+        paths_in, ids, params50, half, half, arch="resnet50", target_shape=target,
+        axes=[mil_cfg["slice_axis"]], counts=[L], input_size=size, per_slice=True, progress=False,
+        compute_dtype="bfloat16")
+    bf16_wall = time.perf_counter() - t0
+    print(f"  bfloat16 pipeline: wall {bf16_wall:.3f} s ({len(rows) / bf16_wall:.2f} volumes/s); "
+          f"LAST_PROFILE {json.dumps({k: round(v, 6) for k, v in pipeline.LAST_PROFILE.items()})}")
+
+    # the device programs of a flush, each as the pipeline calls it
+    xw = on_card[:W]
+    weights = sum(t.numel() * 4 for _, t in _tensors(folded))
+    for name, fold_tree, peak_flops in (("embed_resnet50_flush_f32", folded, H100_F32_FLOPS),
+                                        ("embed_resnet50_flush_bf16", folded16, H100_BF16_FLOPS)):
+        with torch.inference_mode():
+            rec = program_profile(torch, embed_program(pipeline, size, fold_tree, xw, mean_t,
+                                                       mean_t, "resnet50"))
+        n = W * L
+        rec["images"] = n
+        rec["tflops"] = flops_img * n / (rec["device_us_per_step"] / 1e6) / 1e12
+        rec["bound_us"], rec["bound_by"] = embed_bound(
+            flops_img * n, xw.numel() * 4 + n * 2048 * 4 + weights // (2 if "bf16" in name else 1),
+            peak_flops)
+        print_program(f"{name} ({W} subjects x {L} slices)", rec)
+        print(f"    {rec['tflops']:.2f} TFLOP/s; bound {rec['bound_us']:.1f} us ({rec['bound_by']})")
+        programs[name] = rec
+    from pd_fusion_torch.ops.image import slices_to_imagenet_batch
+
+    flat = xw.reshape(-1, *target[:2])
+    with torch.inference_mode():
+        rec = program_profile(torch, lambda: slices_to_imagenet_batch(flat, size, mean_t, mean_t))
+    rec["bound_us"] = (flat.numel() * 4 + flat.shape[0] * size * size * 3 * 4) / H100_BYTES_PER_S * 1e6
+    rec["bound_by"] = "bytes"
+    print_program(f"imagenet batch ({flat.shape[0]} slices {target[0]}^2 -> {size}^2 x 3)", rec)
+    programs["imagenet_batch"] = rec
+
+    # phase 17: the MIL CV on the bags the port built
+    config, data_emb = data_config_copy(yaml, MIL_CONFIG, tmp, manifest, cache, "mil_built")
+    if data_emb != mil_cfg:
+        raise RuntimeError("the MIL config copy's embedding settings differ from the data config")
+    out = tmp / "mil_built_run"
+    ap.reset_launch_counts()
+    t0 = time.perf_counter()
+    agg = cli.main(["run", "--config", str(config), "--output-dir", str(out)])
+    mil_wall = time.perf_counter() - t0
+    k1 = dict(ap.launch_counts)
+    k = yaml.safe_load(config.read_text())["cv_folds"]
+    names = ["results_aggregated.yaml", "fold_assignments.csv", "summary_table.csv"]
+    names += [f"results_fold_{i}.yaml" for i in range(1, k + 1)]
+    require_files(out, names + plot_files(PLOTS, "_fold1"), "the MIL CV on built bags")
+    on_disk = yaml.safe_load((out / "results_aggregated.yaml").read_text())
+    if len(on_disk) != 7 or set(on_disk) != set(agg):
+        raise RuntimeError("the MIL CV on built bags does not hold the 7 scenarios")
+    if k1["kernel"] <= 0 or k1["plain"] != 0:
+        raise RuntimeError(f"the MIL CV on built bags: K1 launches {k1}")
+    mil_auc = on_disk["full_observation"]["roc_auc"]["mean"]
+    if not math.isfinite(mil_auc):
+        raise RuntimeError(f"the MIL CV on built bags: ROC-AUC {mil_auc}")
+    print(f"MIL CV on the built bags ({k}-fold, configs/openneuro_ds001907_resnet2d_mil.yaml): "
+          f"wall {mil_wall:.3f} s, K1 launches {k1['kernel']}, plain 0, full_observation ROC-AUC "
+          f"{mil_auc:.4f} +- {on_disk['full_observation']['roc_auc']['std']:.4f} (not checked "
+          f"against a band: random backbone, synthetic volumes)")
+
+    paths.append({"name": "embed_mil_bags", "volumes": len(rows), "images": n_img, "wall_s": wall,
+                  "volumes_per_s": len(rows) / wall, "images_per_s": n_img / wall,
+                  "busy_share": dev_ms / p_wall, "device_ms": dev_ms, "tflops": tflops,
+                  "peak_gib": peak / 2**30, "flush_width": pipeline.SUBJECTS_PER_CALL,
+                  "chosen_width": chosen, "bf16_wall_s": bf16_wall,
+                  "write_s": write_s, **{f"profile_{k}": v for k, v in prof.items()}})
+    paths.append({"name": "mil_cv_built_bags", "wall_s": mil_wall, "auc": mil_auc,
+                  "k1_launches": k1["kernel"]})
+
+    # phase 18: the mean-pooled builder (ResNet-18, 24 slices) and its CV
+    config, mean_cfg = data_config_copy(yaml, RESNET2D_CONFIG, tmp, manifest, cache, "resnet2d")
+    wall18, df, prof18, peak18 = build_with_script(
+        torch, mean_script, script_argv(mean_cfg, manifest, cache), mean_cfg)
+    cols = [c for c in df.columns if c.startswith("mri_resnet_")]
+    if len(df) != len(rows) or len(cols) != 512 or not np.isfinite(df[cols].to_numpy()).all():
+        raise RuntimeError("the mean-pooled embeddings are not 512 finite columns a row")
+    folded18 = pipeline.fold_backbone(params_to(load_backbone("resnet18")[0], device=DEV),
+                                      "resnet18")
+    with torch.inference_mode():
+        rec = program_profile(torch, embed_program(pipeline, size, folded18,
+                                                   on_card[:W, :mean_cfg["slice_count"]], mean_t,
+                                                   mean_t, "resnet18", per_slice=False))
+    n18 = W * mean_cfg["slice_count"]
+    f18 = ec.resnet_flops(folded18, "resnet18", size)
+    rec["images"] = n18
+    rec["tflops"] = f18 * n18 / (rec["device_us_per_step"] / 1e6) / 1e12
+    rec["bound_us"], rec["bound_by"] = embed_bound(
+        f18 * n18, n18 * target[0] * target[1] * 4 + W * 512 * 4
+        + sum(t.numel() * 4 for _, t in _tensors(folded18)), H100_F32_FLOPS)
+    programs["embed_resnet18_flush_f32"] = rec
+    print(f"mean-pooled build (ResNet-18, {mean_cfg['slice_count']} slices, "
+          f"python -m pd_fusion_torch.scripts.build_resnet2d_embeddings): wall {wall18:.3f} s "
+          f"({len(rows) / wall18:.2f} volumes/s); LAST_PROFILE "
+          f"{json.dumps({k: round(v, 6) for k, v in prof18.items()})}; peak {peak18 / 2**30:.3f} GiB")
+    print_program(f"embed_resnet18_flush_f32 ({W} subjects x {mean_cfg['slice_count']} slices)", rec)
+    print(f"    {rec['tflops']:.2f} TFLOP/s; bound {rec['bound_us']:.1f} us ({rec['bound_by']})")
+    out = tmp / "resnet2d_run"
+    ap.reset_launch_counts()
+    t0 = time.perf_counter()
+    cli.main(["run", "--config", str(config), "--output-dir", str(out)])
+    cv_wall = time.perf_counter() - t0
+    if dict(ap.launch_counts) != {"kernel": 0, "plain": 0}:
+        raise RuntimeError(f"the resnet2d CV launched K1: {ap.launch_counts}")
+    require_files(out, names, "the resnet2d CV")
+    agg18 = yaml.safe_load((out / "results_aggregated.yaml").read_text())
+    auc18 = agg18["full_observation"]["roc_auc"]["mean"]
+    if len(agg18) != 7 or not math.isfinite(auc18):
+        raise RuntimeError(f"the resnet2d CV: {len(agg18)} scenarios, ROC-AUC {auc18}")
+    print(f"resnet2d CV (configs/openneuro_ds001907_resnet2d.yaml: fusion_moddrop, calibrated, "
+          f"nested, 5-fold; clinical and DaT groups empty): wall {cv_wall:.3f} s, "
+          f"full_observation ROC-AUC {auc18:.4f} +- {agg18['full_observation']['roc_auc']['std']:.4f}"
+          f", K1 launches 0")
+    paths.append({"name": "embed_resnet2d", "wall_s": wall18, "volumes_per_s": len(rows) / wall18,
+                  "peak_gib": peak18 / 2**30})
+    paths.append({"name": "resnet2d_cv", "wall_s": cv_wall, "auc": auc18})
+
+    # phase 19: the 3-axis TTA bags on a subset, one volume card vs CPU
+    multi_config, multi_cfg = data_config_copy(yaml, MULTI_CONFIG, tmp, manifest, cache, "multi")
+    sub = rows[:2 * TTA_SUBJECTS]
+    sub_manifest = tmp / "manifest_tta.csv"
+    sub_manifest.write_text("\n".join(manifest.read_text().splitlines()[:1 + len(sub)]) + "\n")
+    wall_tta, tta_path, prof_tta, peak_tta = build_with_script(
+        torch, mil_script, script_argv(multi_cfg, sub_manifest, tmp / "tta"), multi_cfg)
+    L3 = sum(multi_cfg["slice_counts"])
+    with np.load(tta_path, allow_pickle=True) as bags:
+        tta_emb = bags["embeddings"]
+    if tta_emb.shape != (len(sub), L3, 2048) or not np.isfinite(tta_emb).all():
+        raise RuntimeError(f"the TTA bags are {tta_emb.shape}")
+    t0 = time.perf_counter()
+    cpu = pipeline.run_resnet_embedding_pipeline(
+        [sub[0]["t1wbrain_path"]], [sub[0]["subject_id"]], params50, half, half,
+        arch="resnet50", target_shape=tuple(multi_cfg["target_shape"]),
+        axes=multi_cfg["slice_axes"], counts=multi_cfg["slice_counts"], input_size=size,
+        tta=multi_cfg["tta"], max_rotation=multi_cfg["max_rotation_deg"],
+        max_translation=multi_cfg["max_translation"],
+        intensity_scale=multi_cfg["intensity_scale"], intensity_shift=multi_cfg["intensity_shift"],
+        noise_std=multi_cfg["noise_std"], per_slice=True, progress=False, device="cpu")[0]
+    cpu_s = time.perf_counter() - t0
+    scale = float(np.abs(cpu).max())
+    err = float(np.abs(tta_emb[0] - cpu).max())
+    if not err <= ec.F32_REL * scale:
+        raise RuntimeError(f"TTA bag card vs CPU: max abs err {err:.3e} > {ec.F32_REL} x {scale:.3e}")
+    print(f"3-axis TTA bags (configs/data_openneuro_ds001907_resnet2d_mil_multi.yaml: ResNet-50, "
+          f"3 x {multi_cfg['slice_counts'][0]} slices, tta {multi_cfg['tta']}) on {len(sub)} "
+          f"volumes: wall {wall_tta:.3f} s ({len(sub) / wall_tta:.2f} volumes/s), LAST_PROFILE "
+          f"{json.dumps({k: round(v, 6) for k, v in prof_tta.items()})}, peak "
+          f"{peak_tta / 2**30:.3f} GiB; volume 0 card vs CPU: max abs err {err:.3e} of max "
+          f"|emb| {scale:.3e} (bound {ec.F32_REL} x), CPU {cpu_s:.3f} s")
+    xt = on_card[:W, :L3 // 3].repeat(1, 3, 1, 1)
+    draw = pipeline.tta_draws([r["subject_id"] for r in rows[:len(xt)]], 1, L3, *target[:2],
+                              multi_cfg["max_rotation_deg"], multi_cfg["max_translation"],
+                              multi_cfg["intensity_scale"], multi_cfg["intensity_shift"],
+                              multi_cfg["noise_std"])[0]
+    args = [torch.from_numpy(a).to(DEV) for a in draw]
+    with torch.inference_mode():
+        rec = program_profile(torch, lambda: pipeline._augment(xt, *args))
+    rec["bound_us"] = 3 * xt.numel() * 4 / H100_BYTES_PER_S * 1e6  # slices, noise in; out
+    rec["bound_by"] = "bytes"
+    print_program(f"TTA affine + intensity + noise ({W} subjects x {L3} slices {target[0]}^2)", rec)
+    programs["tta_affine"] = rec
+    paths.append({"name": "embed_tta_multi_axis", "volumes": len(sub), "wall_s": wall_tta,
+                  "volumes_per_s": len(sub) / wall_tta, "card_vs_cpu_max_abs_err": err,
+                  "peak_gib": peak_tta / 2**30})
+    return paths, programs, k1["kernel"]
+
+
+def _tensors(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _tensors(v, f"{prefix}/{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _tensors(v, f"{prefix}/{i}")
+    else:
+        yield prefix, tree
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
     parser.add_argument("--compare-with", type=Path, default=None,
@@ -999,12 +1460,16 @@ def main() -> int:
     get_device()  # sets full-f32 matmuls on the card
 
     # phase 2: build K1 from the repo's sources (and the source to compare
-    # with), one nvcc each, started together
+    # with), one nvcc each, and the host IO library (g++), all started together
+    from pd_fusion_torch.imaging import native
+
     sources = [ap.SOURCE] + ([args.compare_with.resolve()] if args.compare_with else [])
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(sources)) as pool:
+    with ThreadPoolExecutor(len(sources) + 1) as pool:
+        host_lib = pool.submit(native.build_library)
         libs = list(pool.map(ap.build_library, sources))
-    print(f"build: {', '.join(map(str, libs))} in {time.perf_counter() - t0:.2f} s")
+        host_lib = host_lib.result()
+    print(f"build: {', '.join(map(str, libs + [host_lib]))} in {time.perf_counter() - t0:.2f} s")
     for src, lib in zip(sources, libs):
         log = lib.with_suffix(".log").read_text().strip()
         print(f"-Xptxas=-v for {src}:\n{log}")
@@ -1158,7 +1623,25 @@ def main() -> int:
     paths += moe_paths + gbdt_paths
     programs.update({f"isotonic_K{K}_Nc{n}": r for (K, n), r in iso.items()}, **gbdt_programs)
 
-    # phase 13: the record (times at the training step's shape, and at B=80)
+    # phase 13: the host IO library the embed path runs on
+    import os
+
+    info = native.build_info()
+    print(f"native pd_io: {info['path']}, inflate {info['inflate']}, built in "
+          f"{info['build_s']:.2f} s (g++ -O3 -march=native); host cores "
+          f"{len(os.sched_getaffinity(0))}; pyarrow "
+          f"{'present' if importlib.util.find_spec('pyarrow') else 'absent'}")
+
+    # phases 14-19: the imaging embed path, then the MIL CV on its bags
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_embed_"))
+    try:
+        embed_paths, embed_programs, built_launches = run_embed_path(torch, np, yaml, ap, cli, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    paths += embed_paths
+    programs.update(embed_programs)
+
+    # phase 20: the record (times at the training step's shape, and at B=80)
     print(json.dumps({"programs": [
         {"name": name, **{k: v for k, v in rec.items() if k != "prof"}}
         for name, rec in programs.items()]}))
@@ -1168,7 +1651,9 @@ def main() -> int:
         "route": "cuda",
         "source": "src/pd_fusion_torch/csrc/attention_pool.cu",
         "replaces": "src/pd_fusion/ops/pallas_mil.py:26",
-        "launches": res["launches"],
+        "launches": res["launches"] + built_launches,
+        "launches_by_path": {"mil_cv_synthetic_bags": res["launches"],
+                             "mil_cv_built_bags": built_launches},
         "max_abs_err": max_err,
         "ms": t["kernel_ms"],
         "plain_ms": t["plain_ms"],

@@ -2,11 +2,13 @@
 (port of ``pd_fusion/data/openneuro_ds001907.py``).
 
 The manifest path comes from the ``PD_FUSION_DS001907_MANIFEST``
-environment override or the config. Only ``feature_mode: resnet2d_mil``
-(precomputed per-slice bags in ``mri_mil``) is ported; every other mode
-raises ``NotImplementedError``. Labels canonicalize to ``diagnosis``; the
-mri mask marks rows with a bag, the clinical/datspect masks are all-zero
-(MRI-only dataset).
+environment override or the config. Two feature modes are ported:
+``resnet2d_mil`` (precomputed per-slice bags in ``mri_mil``; the mri mask
+marks rows with a bag) and ``resnet2d`` (mean-pooled ``mri_resnet_*``
+columns; the mri mask marks rows with any feature present). The other
+modes raise ``NotImplementedError`` naming their ROADMAP item. Labels
+canonicalize to ``diagnosis``; the clinical/datspect masks are all-zero
+and those groups have no columns (MRI-only dataset).
 """
 import os
 from pathlib import Path
@@ -24,7 +26,6 @@ _CACHE_ROOT = "data/processed/openneuro_ds001907"
 _NOT_PORTED = {
     "simple": "Queue 1 item 13",
     "cnn3d": "Queue 1 item 13",
-    "resnet2d": "Queue 1 item 9",
     "resnet2d_mil_ft": "Queue 1 item 11",
 }
 
@@ -47,11 +48,13 @@ def load_openneuro_ds001907(config: Dict) -> Tuple[pd.DataFrame, Dict[str, np.nd
             f"feature_mode '{mode}' is not ported to pd_fusion_torch yet "
             f"(ROADMAP {_NOT_PORTED[mode]})"
         )
-    if mode != "resnet2d_mil":
-        raise ValueError(f"unknown feature_mode '{mode}'")
-    from pd_fusion_torch.data.openneuro_features import load_resnet2d_mil_embeddings
+    from pd_fusion_torch.data import openneuro_features as F
 
-    df = load_resnet2d_mil_embeddings(
+    loaders = {"resnet2d": F.load_resnet2d_embeddings,
+               "resnet2d_mil": F.load_resnet2d_mil_embeddings}
+    if mode not in loaders:
+        raise ValueError(f"unknown feature_mode '{mode}'")
+    df = loaders[mode](
         manifest,
         Path(config.get("resnet2d_cache_dir", f"{_CACHE_ROOT}/embeddings_resnet2d")),
         config.get("resnet2d_config", {}),
@@ -62,6 +65,10 @@ def load_openneuro_ds001907(config: Dict) -> Tuple[pd.DataFrame, Dict[str, np.nd
             raise ValueError("ds001907 frame lacks both 'label' and 'diagnosis'")
         df[TARGET_COL] = df["label"].astype(int)
 
-    mri_mask = df["mri_mil"].map(lambda bag: int(bag is not None)).to_numpy()
+    value_cols = [c for c in df.columns if c.startswith("mri_") and c != "mri_mil"]
+    if value_cols:
+        mri_mask = df[value_cols].notna().any(axis=1).astype(int).to_numpy()
+    else:
+        mri_mask = df["mri_mil"].map(lambda bag: int(bag is not None)).to_numpy()
     zeros = np.zeros(len(df), dtype=int)
     return df, {"clinical": zeros, "datspect": zeros.copy(), "mri": mri_mask}

@@ -2,7 +2,8 @@
 
 ``ROOT_DIR`` resolves to the repository root, so the port shares the JAX
 package's ``configs/`` and ``runs/`` directories. ``BUILD_DIR`` holds the
-CUDA kernels the port builds at first use (listed in ``.gitignore``).
+CUDA kernels the port builds at first use, ``HOST_BUILD_DIR`` its host C++
+library (``csrc/pd_io.cpp``); ``build/`` is listed in ``.gitignore``.
 """
 import os
 from pathlib import Path
@@ -19,6 +20,7 @@ DEV_DATA_DIR = Path(os.environ.get("PD_FUSION_DEV_DATA_DIR") or DATA_DIR / "raw_
 RUNS_DIR = ROOT_DIR / "runs"
 CONFIGS_DIR = ROOT_DIR / "configs"
 BUILD_DIR = ROOT_DIR / "build" / "kernels"
+HOST_BUILD_DIR = ROOT_DIR / "build" / "host"
 
 
 def get_run_dir(run_id: str) -> Path:

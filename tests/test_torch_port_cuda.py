@@ -11,9 +11,11 @@ The checks and their tolerances live in
 ``pd_fusion_torch/nn/trainer_checks.py`` (the fold-batched tabular and
 MoE trainers and the MLP forward, card against CPU),
 ``pd_fusion_torch/ops/isotonic_checks.py`` (device isotonic against the
-host fit) and ``pd_fusion_torch/nn/gbdt_checks.py`` (GBDT determinism,
+host fit), ``pd_fusion_torch/nn/gbdt_checks.py`` (GBDT determinism,
 fold batching, card against CPU with the split-optimality audit,
-TreeSHAP), which ``chip_smoke.py`` runs too.
+TreeSHAP) and ``pd_fusion_torch/imaging/embed_checks.py`` (the ResNet
+backbones and the embed pipeline, card against CPU), which
+``chip_smoke.py`` runs too.
 """
 import pytest
 import torch
@@ -106,3 +108,47 @@ def test_treeshap_on_the_card_matches_the_cpu(cuda):
     bins, y, w, base = gbdt_checks.cv_like_inputs(K=1, n=300)
     trees = gbdt_checks.fit(bins[0], y[0], w[0], base[0], dict(GBDT_HP, hist_mode="onehot"), cuda)
     gbdt_checks.compare_shap_card_with_cpu(trees, bins[0], base[0], GBDT_HP["depth"], cuda)
+
+
+@pytest.mark.parametrize("arch", ["resnet18", "resnet50"])
+def test_backbone_on_the_card_matches_the_cpu(cuda, arch):
+    """Float32 (TF32 off) and bfloat16 against the CPU on 12 slices at 64^2
+    (``imaging/embed_checks.py``'s bounds)."""
+    import numpy as np
+
+    from pd_fusion_torch.imaging import embed_checks
+    from pd_fusion_torch.nn.resnet import load_backbone
+    from pd_fusion_torch.utils.device import get_device
+
+    get_device(cuda)  # TF32 off
+    params, _, _ = load_backbone(arch, seed=1)
+    slices = np.random.RandomState(2).rand(12, 40, 40).astype(np.float32)
+    half = np.full(3, 0.5, np.float32)
+    embed_checks.compare_card_with_cpu(params, slices, arch, 64, half, half, cuda)
+
+
+def test_embed_pipeline_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """The whole pipeline (native prep, pinned staging, side-stream copies,
+    TTA draws) on the card and on the CPU: per-slice 3-axis bags with
+    ``tta: 2``, flushes of 4, 4 and 2."""
+    import numpy as np
+
+    from pd_fusion_torch.imaging import embed_checks
+    from pd_fusion_torch.imaging.pipeline import run_resnet_embedding_pipeline
+    from pd_fusion_torch.nn.resnet import load_backbone
+    from pd_fusion_torch.utils.device import get_device
+
+    get_device(cuda)
+    _, rows, _ = embed_checks.synthetic_t1w_dataset(tmp_path, 5, shape=(30, 34, 28), workers=2)
+    params, _, _ = load_backbone("resnet18", seed=0)
+    half = np.full(3, 0.5, np.float32)
+    out = {}
+    for dev in ("cpu", cuda):
+        out[str(dev)] = np.stack(run_resnet_embedding_pipeline(
+            [r["t1wbrain_path"] for r in rows], [r["subject_id"] for r in rows], params, half,
+            half, arch="resnet18", target_shape=(24, 24, 24), axes=[0, 1, 2], counts=[2, 3, 4],
+            input_size=48, tta=2, per_slice=True, progress=False, device=dev,
+            subjects_per_call=4))
+    cpu, card = out["cpu"], out[str(cuda)]
+    assert card.shape == (10, 9, 512)
+    assert np.abs(card - cpu).max() <= embed_checks.F32_REL * np.abs(cpu).max()

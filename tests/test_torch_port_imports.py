@@ -23,9 +23,13 @@ bad = sorted(m for m in sys.modules
 print(len(names), bad, " ".join(names))
 """
 
-# the modules of the calibrated, MoE and GBDT slice, each imported above
+# the modules of the calibrated, MoE and GBDT slice and of the imaging
+# embed path, each imported above
 SLICE_MODULES = ("ops.isotonic", "ops.isotonic_checks", "nn.moe", "models.moe", "nn.gbdt",
                  "nn.gbdt_checks", "models.unimodal_gbdt", "ops.treeshap")
+EMBED_MODULES = ("imaging.nifti", "imaging.native", "imaging.pipeline", "imaging.embed_checks",
+                 "ops.image", "nn.resnet", "data.openneuro_features", "data.openneuro_ds001907",
+                 "scripts.build_resnet2d_embeddings", "scripts.build_resnet2d_mil_embeddings")
 
 
 def test_port_imports_without_jax_or_jax_package():
@@ -38,7 +42,7 @@ def test_port_imports_without_jax_or_jax_package():
     bad, names = rest.split("] ", 1)
     assert int(count) >= 38  # every module of the port was imported
     assert bad + "]" == "[]"
-    assert {f"pd_fusion_torch.{m}" for m in SLICE_MODULES} <= set(names.split())
+    assert {f"pd_fusion_torch.{m}" for m in SLICE_MODULES + EMBED_MODULES} <= set(names.split())
 
 
 def _imported_modules(path: Path):
@@ -56,6 +60,18 @@ def test_port_source_imports_no_jax(path):
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
         assert top not in ("jax", "jaxlib", "optax", "pd_fusion"), f"{path.name} imports {mod}"
+
+
+def test_port_builds_its_own_native_source_not_the_root_tree():
+    """The host IO library is the port's ``csrc/pd_io.cpp``, built into the
+    gitignored ``build/host/``; nothing of the repository's ``native/``."""
+    from pd_fusion_torch.imaging import native
+    from pd_fusion_torch.paths import HOST_BUILD_DIR, ROOT_DIR
+
+    assert native.SOURCE == PORT / "csrc" / "pd_io.cpp" and native.SOURCE.exists()
+    assert HOST_BUILD_DIR == ROOT_DIR / "build" / "host"
+    for path in PORT.rglob("*.py"):  # no path joined onto the root's native/
+        assert '"native"' not in path.read_text(), path
 
 
 def test_get_device_raises_without_cuda_unless_cpu_requested(monkeypatch):

@@ -112,7 +112,29 @@ Phases; any failure exits non-zero before the final line:
    ``fusion_moddrop``; the clinical and DaT groups are empty);
 19. the 3-axis TTA bags (``..._mil_multi.yaml``: 3 x 24 slices, ``tta:
    2``) on 16 volumes, volume 0 against the CPU pipeline;
-20. a JSON line with each device program's host and device time and
+20. one MIL fine-tune step (``models/mil_attention_finetune.py::ft_step``:
+   ResNet-50 at 224^2 with train-mode BN, B=2, L=8, gated head 256/128,
+   focal, a ragged row, dropout keeps given) on the card against the CPU
+   from the same parameters and draws, with the gate at 0 and at 1
+   (``pd_fusion_torch/models/ft_checks.py``, shared with the ``cuda``
+   tests): loss, running statistics, Adam moments and counts, and each
+   device's weights against its own Adam step;
+21. the fine-tune step at the config's full width (B=4, L=64, 160^2 ->
+   224^2), frozen and unfrozen, under ``torch.profiler``: device and host
+   time, launches, busy share, the step's wall and enqueue time, peak
+   device memory (blocks rematerialized), TFLOP/s against the float32
+   bound, the top device ops, and K1's kernel (by its symbol) and its
+   torch-op backward (a ``record_function`` range) with their share of the
+   step;
+22. the fine-tune CV through the CLI on a copy of
+   ``configs/openneuro_ds001907_resnet2d_mil_ft.yaml`` at every width of
+   the config, on 24 of phase 14's subjects x 2 sessions, 2 folds, 3 epochs
+   with the gate opening after the first (the cuts are printed): 7
+   scenarios, fold CSVs and plots, K1 launched and the plain pool never;
+   then the single split (``results.yaml``, ``model.pt``), the artifact
+   reloaded with ``load_model`` predicting as the trained model with
+   ``tta_inference`` 1; and a predict chunk with TTA 4 profiled;
+23. a JSON line with each device program's host and device time and
    launches a step; one with each path's wall time, busy share and AUC;
    one with each kernel's launches (by path), error and times (B=16 and
    B=80, and the launch floor); the card line again; then ``{"ok": true,
@@ -297,6 +319,22 @@ def check_mil_head(torch, np):
 K1_BWD_RANGE = "K1 backward (AttentionPool.backward)"
 
 
+@contextlib.contextmanager
+def k1_backward_range(torch, ap):
+    """K1's torch-op backward inside a ``record_function`` range."""
+    backward = ap.AttentionPool.backward
+
+    def ranged_backward(ctx, *grads):
+        with torch.profiler.record_function(K1_BWD_RANGE):
+            return backward(ctx, *grads)
+
+    ap.AttentionPool.backward = staticmethod(ranged_backward)
+    try:
+        yield
+    finally:
+        ap.AttentionPool.backward = staticmethod(backward)
+
+
 def range_device(torch, prof, name):
     """A ``record_function`` range over all its calls: (calls, device ms,
     kernel launches) of the kernels its ops and their children launched.
@@ -335,19 +373,10 @@ def profile_trainer(torch, ap, n=80, epochs=2, top=6):
         return train_mil_impl(p0, X, M, y, ones, X, M, y, ones, g, 5e-4, 1.0, 1.0, e, 16, True,
                               0.2, 1e-3, True, True, patience=8)
 
-    backward = ap.AttentionPool.backward
-
-    def ranged_backward(ctx, *grads):
-        with torch.profiler.record_function(K1_BWD_RANGE):
-            return backward(ctx, *grads)
-
     run(1)
     torch.cuda.synchronize()
-    ap.AttentionPool.backward = staticmethod(ranged_backward)
-    try:
+    with k1_backward_range(torch, ap):
         wall_ms, prof = profiled(torch, lambda: run(epochs))
-    finally:
-        ap.AttentionPool.backward = staticmethod(backward)
     on_device = device_rows(torch, prof.key_averages())
     on_device.sort(key=_dev_ms, reverse=True)
     return (wall_ms, sum(_dev_ms(e) for e in on_device),
@@ -1121,7 +1150,8 @@ def run_embed_path(torch, np, yaml, ap, cli, tmp: Path):
     """Phases 14-19: synthetic volumes; ResNet-50 card vs CPU; the MIL bag
     builder at full width with its profile, flush widths and dtypes; the
     MIL CV on the built bags; the mean-pooled builder and its CV; the
-    3-axis TTA bags. -> (paths, programs, K1 launches of the MIL CV)."""
+    3-axis TTA bags. -> (paths, programs, K1 launches of the MIL CV, the
+    volumes' manifest)."""
     from pd_fusion_torch.imaging import embed_checks as ec
     from pd_fusion_torch.imaging import pipeline
     from pd_fusion_torch.nn.resnet import load_backbone, params_to
@@ -1418,6 +1448,248 @@ def run_embed_path(torch, np, yaml, ap, cli, tmp: Path):
     paths.append({"name": "embed_tta_multi_axis", "volumes": len(sub), "wall_s": wall_tta,
                   "volumes_per_s": len(sub) / wall_tta, "card_vs_cpu_max_abs_err": err,
                   "peak_gib": peak_tta / 2**30})
+    return paths, programs, k1["kernel"], manifest
+
+
+# ---------------------------------------------------------------------------
+# the MIL fine-tune (phases 20-22)
+# ---------------------------------------------------------------------------
+
+FT_CONFIG = ROOT / "configs" / "openneuro_ds001907_resnet2d_mil_ft.yaml"
+# the CV's depth cuts; every width stays the config's. 24 subjects, not
+# fewer: the nested calibration split (calibration_split 0.1, a 10-way
+# group K-fold of a fold's training part) needs 10 rows of a class there
+FT_SUBJECTS = 24
+FT_DEPTH = {"epochs": 3, "freeze_backbone_epochs": 1}
+FT_FOLDS = 2
+FT_PREDICT_BAGS = 8  # bags predicted again after the artifact's reload
+
+
+def ft_flops(ec, TR, backbone, arch, size, n_img, train_backbone):
+    """Convolution FLOPs of one step: the forward; unfrozen also the blocks'
+    recompute (remat) and the backward (weight and data gradients; the stem
+    needs no data gradient): 4 F - 2 F_stem an image."""
+    f = ec.resnet_flops(TR.fold_bn_inference(backbone, arch), arch, size)
+    out = (size + 2 * 3 - 7) // 2 + 1
+    f_stem = 2 * out * out * 64 * 3 * 7 * 7
+    return n_img * (4 * f - 2 * f_stem if train_backbone else f), f
+
+
+def ft_step_program(torch, ap, ft, fc, ec, TR, gate, B, L, hw):
+    """The fine-tune step at full width on the card (``ft_step``, B bags of L
+    slices, the config's widths): host, device, launches and busy share a
+    step (``program_profile``: one warm-up step, one timed, two profiled),
+    the step's wall and the time to enqueue it, peak device memory, TFLOP/s
+    against the float32 bound, the top device ops, and K1's forward and
+    backward (its kernel by symbol, its backward's torch ops by range). ->
+    record."""
+    backbone, head = fc.start_params()
+    bp, hp = TR.params_to(backbone, device=DEV), TR.params_to(head, device=DEV)
+    st = {"bp": bp, "hp": hp, "opt": {"backbone": ft.ft_optim.init_group(ft.trainable_leaves(bp)),
+                                      "head": ft.ft_optim.init_group(ft.trainable_leaves(hp))}}
+    batch = {k: torch.as_tensor(v, device=DEV)
+             for k, v in fc.step_inputs(B, L, hw, seed=3, ragged=False).items()}
+    hyper = fc.hyper(DEV)
+
+    def step():
+        st["bp"], st["hp"], _ = ft.ft_step(st["bp"], st["hp"], st["opt"], batch, gate, hyper)
+
+    with k1_backward_range(torch, ap):
+        rec = program_profile(torch, step, calls=2)
+    prof = rec.pop("prof")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    step()
+    enqueue = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    rec["peak_above_state_gib"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    rec["enqueue_us"] = enqueue * 1e6
+    rec["wall_us"] = wall * 1e6
+    n_img = B * L
+    flops, f_img = ft_flops(ec, TR, backbone, fc.ARCH, fc.SIZE, n_img, bool(gate))
+    rec["tflop"] = flops / 1e12
+    rec["tflops"] = flops / (rec["device_us_per_step"] / 1e6) / 1e12
+    rec["bound_us"] = flops / H100_F32_FLOPS * 1e6
+    rec["bound_by"] = "operations"
+    rows = device_rows(torch, prof.key_averages())
+    rows.sort(key=_dev_ms, reverse=True)
+    rec["top"] = [(e.key[:60], _dev_ms(e) / 2, e.count / 2) for e in rows[:6]]
+    dev_ms = rec["device_us_per_step"] / 1e3
+    # K1's kernel is launched through ctypes, outside any torch op, so it is
+    # found by its symbol; its backward is torch ops inside their range
+    k1 = [e for e in rows if K1_SYMBOL in e.key]
+    _, bwd_ms, bwd_n = range_device(torch, prof, K1_BWD_RANGE)
+    for key, ms, launches in (("k1_fwd", sum(_dev_ms(e) for e in k1), sum(e.count for e in k1)),
+                              ("k1_bwd", bwd_ms, bwd_n)):
+        rec[f"{key}_us"] = ms / 2 * 1e3
+        rec[f"{key}_launches"] = launches / 2
+        rec[f"{key}_share"] = ms / 2 / dev_ms
+    if rec["k1_fwd_launches"] < 1 or (gate and rec["k1_bwd_launches"] < 1):
+        raise RuntimeError(f"the fine-tune step shows no K1 forward or backward kernel: {rec}")
+    rec["gflop_per_image_fwd"] = f_img / 1e9
+    return rec
+
+
+def run_ft_path(torch, np, yaml, ap, cli, tmp: Path, manifest: Path):
+    """Phases 20-22: one step card vs CPU; the full-width step profiled,
+    frozen and not; the CLI CV at full width and reduced depth, then the
+    single split and the artifact's reload. -> (paths, programs, K1
+    launches of the CV)."""
+    import pandas as pd
+
+    from pd_fusion_torch.experiments import run_experiment
+    from pd_fusion_torch.imaging import embed_checks as ec
+    from pd_fusion_torch.models import ft_checks as fc
+    from pd_fusion_torch.models import mil_attention_finetune as ft
+    from pd_fusion_torch.models.serialization import load_model
+    from pd_fusion_torch.nn import resnet as TR
+
+    cfg = yaml.safe_load(FT_CONFIG.read_text())
+    prm = dict(cfg["params"])
+    programs, paths = {}, []
+
+    # phase 20: one step, card against CPU
+    t0 = time.perf_counter()
+    errs = fc.compare_card_with_cpu(DEV)
+    print(f"fine-tune step card vs CPU ({fc.ARCH}, {fc.SIZE}^2, B=2, L=8, gated head "
+          f"{fc.HIDDEN}/{fc.ATTN}, focal, a ragged row, dropout keeps given; "
+          f"models/ft_checks.py tolerances): {json.dumps(errs)}; "
+          f"{time.perf_counter() - t0:.3f} s")
+
+    # phase 21: the full-width step, frozen and unfrozen, under the profiler
+    B, L = int(prm["batch_size"]), int(prm["slice_count"])
+    hw = int(prm["target_shape"][0])
+    for name, gate in (("mil_ft_step_frozen", 0.0), ("mil_ft_step_unfrozen", 1.0)):
+        rec = ft_step_program(torch, ap, ft, fc, ec, TR, gate, B, L, hw)
+        print_program(f"{name} (B={B}, L={L}, {hw}^2 -> {fc.SIZE}^2, {fc.ARCH} train-mode BN, "
+                      f"remat, gated head, focal, two-group Adam)", rec)
+        print(f"    step wall {rec['wall_us']:.1f} us (enqueue {rec['enqueue_us']:.1f} us); peak "
+              f"{rec['peak_gib']:.3f} GiB ({rec['peak_above_state_gib']:.3f} above params, state "
+              f"and batch); {rec['tflop']:.3f} TFLOP a step, {rec['tflops']:.2f} TFLOP/s over "
+              f"the device time; bound {rec['bound_us']:.1f} us at 67 TFLOP/s float32 "
+              f"({rec['bound_us'] / rec['device_us_per_step']:.4f} of it)")
+        print(f"    K1 forward {rec['k1_fwd_us']:.3f} us ({rec['k1_fwd_launches']:.0f} launches, "
+              f"share {rec['k1_fwd_share']:.6f}); K1 backward (torch ops) {rec['k1_bwd_us']:.3f} "
+              f"us ({rec['k1_bwd_launches']:.0f} launches, share {rec['k1_bwd_share']:.6f})")
+        for op, ms, count in rec["top"]:
+            print(f"    {ms:10.3f} ms  x{count:<6.0f} {op}")
+        programs[name] = rec
+
+    # phase 22: the CLI CV at full width and reduced depth
+    lines = manifest.read_text().splitlines()
+    sub_manifest = tmp / "manifest_ft.csv"
+    sub_manifest.write_text("\n".join(lines[:1 + 2 * FT_SUBJECTS]) + "\n")
+    data_cfg = yaml.safe_load((ROOT / cfg["data_config"]).read_text())
+    data_cfg["manifest_path"] = str(sub_manifest)
+    (tmp / "data_ft.yaml").write_text(yaml.safe_dump(data_cfg))
+    cfg["data_config"] = str(tmp / "data_ft.yaml")
+    cfg["params"].update(FT_DEPTH)
+    cfg["cv_folds"] = FT_FOLDS
+    config = tmp / "ft.yaml"
+    config.write_text(yaml.safe_dump(cfg))
+    print(f"fine-tune CV cuts of depth (every width is the config's: {prm['backbone']}, "
+          f"{prm['target_shape']}, {L} slices, {prm['input_size']}^2, batch {B}, gated, "
+          f"{prm['loss_type']}, balanced, clip {prm['max_grad_norm']}, TTA {prm['tta_inference']}, "
+          f"nested calibration): {FT_SUBJECTS} subjects x 2 sessions (not all of ds001907), "
+          f"cv_folds {FT_FOLDS} (not {yaml.safe_load(FT_CONFIG.read_text())['cv_folds']}), epochs "
+          f"{FT_DEPTH['epochs']} (not {prm['epochs']}), freeze_backbone_epochs "
+          f"{FT_DEPTH['freeze_backbone_epochs']} (not {prm['freeze_backbone_epochs']}), so the gate "
+          f"opens inside the run; random backbone (no download)")
+    out = tmp / "ft_run"
+    ft.SLICE_CACHE.clear()
+    ap.reset_launch_counts()
+    t0 = time.perf_counter()
+    agg = cli.main(["run", "--config", str(config), "--output-dir", str(out)])
+    cv_wall = time.perf_counter() - t0
+    k1 = dict(ap.launch_counts)
+    names = ["results_aggregated.yaml", "fold_assignments.csv", "summary_table.csv"]
+    names += [f"results_fold_{i}.yaml" for i in range(1, FT_FOLDS + 1)]
+    names += [f"preds_fold_{i}_full_observation.csv" for i in range(1, FT_FOLDS + 1)]
+    require_files(out, names + plot_files(PLOTS, "_fold1"), "the fine-tune CV")
+    on_disk = yaml.safe_load((out / "results_aggregated.yaml").read_text())
+    if len(on_disk) != 7 or set(on_disk) != set(agg):
+        raise RuntimeError("the fine-tune CV does not hold the 7 scenarios")
+    if k1["kernel"] <= 0 or k1["plain"] != 0:
+        raise RuntimeError(f"the fine-tune CV: K1 launches {k1}")
+    auc = on_disk["full_observation"]["roc_auc"]["mean"]
+    if not math.isfinite(auc):
+        raise RuntimeError(f"the fine-tune CV: ROC-AUC {auc}")
+    print(f"fine-tune CV ({FT_FOLDS}-fold, {2 * FT_SUBJECTS} volumes, python -m pd_fusion_torch.cli "
+          f"run --config <copy of {FT_CONFIG.name}>): wall {cv_wall:.3f} s, K1 launches "
+          f"{k1['kernel']}, plain 0, full_observation ROC-AUC {auc:.4f} +- "
+          f"{on_disk['full_observation']['roc_auc']['std']:.4f} (no band: random backbone, "
+          f"3 epochs)")
+    for scen, m in on_disk.items():
+        print(f"  {scen}: roc_auc {m['roc_auc']['mean']:.4f} +- {m['roc_auc']['std']:.4f}")
+
+    # the single split: results.yaml and the model artifact; the model as
+    # trained, and reloaded, predict the same with tta_inference 1
+    trained = []
+    train_pipeline = run_experiment.train_pipeline
+
+    def keep_model(*a, **kw):
+        out = train_pipeline(*a, **kw)
+        trained.append(out[0])
+        return out
+
+    single = {k: v for k, v in cfg.items() if k != "cv_folds"}
+    single_config = tmp / "ft_single.yaml"
+    single_config.write_text(yaml.safe_dump(single))
+    run_out = tmp / "ft_single"
+    ap.reset_launch_counts()
+    t0 = time.perf_counter()
+    run_experiment.train_pipeline = keep_model
+    try:
+        results = cli.main(["run", "--config", str(single_config), "--output-dir", str(run_out)])
+    finally:
+        run_experiment.train_pipeline = train_pipeline
+    train_wall = time.perf_counter() - t0
+    train_k1 = dict(ap.launch_counts)
+    require_files(run_out, ["results.yaml", "model.pt", "preprocess.pkl"], "the fine-tune run")
+    if len(results) != 7 or train_k1["plain"] != 0 or train_k1["kernel"] <= 0:
+        raise RuntimeError(f"the fine-tune run: {len(results)} scenarios, K1 {train_k1}")
+    model = trained[0]
+    base = getattr(model, "base_model", model)
+    base.save(tmp / "ft_artifact.pt")
+    bags = pd.read_csv(sub_manifest)["t1wbrain_path"].tolist()[:FT_PREDICT_BAGS]
+    want = {}
+    for what, m in (("trained", base), ("model.pt", load_model(run_out / "model.pt")),
+                    ("kind artifact", load_model(tmp / "ft_artifact.pt"))):
+        m = getattr(m, "base_model", m)
+        m.tta_inference = 1
+        want[what] = m.predict_proba(bags)
+    reload_err = max(float(np.abs(v - want["trained"]).max()) for v in want.values())
+    if not (np.isfinite(want["trained"]).all() and reload_err <= 1e-6):
+        raise RuntimeError(f"the reloaded fine-tune model predicts {want}")
+    print(f"fine-tune single split (run --config <the copy without cv_folds>): wall "
+          f"{train_wall:.3f} s, K1 launches {train_k1['kernel']}; model.pt "
+          f"({type(model).__name__}) and the mil_attention_ft artifact reloaded with load_model "
+          f"predict {FT_PREDICT_BAGS} bags as the trained model (tta_inference 1): max abs err "
+          f"{reload_err:.3e}, uncalibrated probabilities {want['trained'].min():.6f} to "
+          f"{want['trained'].max():.6f}; full_observation ROC-AUC "
+          f"{results['full_observation']['roc_auc']:.4f}")
+
+    # the predict chunk with TTA, as predict_proba runs it (slices cached)
+    base.tta_inference = int(prm["tta_inference"])
+    rec = program_profile(torch, lambda: base.predict_proba(bags[:B]), calls=2)
+    rec.pop("prof")
+    f_img = programs["mil_ft_step_frozen"]["gflop_per_image_fwd"] * 1e9
+    flops = f_img * B * L * base.tta_inference
+    rec["tflops"] = flops / (rec["device_us_per_step"] / 1e6) / 1e12
+    rec["bound_us"], rec["bound_by"] = flops / H100_F32_FLOPS * 1e6, "operations"
+    print_program(f"mil_ft_predict_chunk (B={B} bags, TTA {base.tta_inference}, host noise draws "
+                  f"included)", rec)
+    print(f"    {rec['tflops']:.2f} TFLOP/s; bound {rec['bound_us']:.1f} us")
+    programs["mil_ft_predict_chunk_tta"] = rec
+    paths.append({"name": "mil_ft_cv", "volumes": 2 * FT_SUBJECTS, "folds": FT_FOLDS,
+                  "epochs": FT_DEPTH["epochs"], "wall_s": cv_wall, "auc": auc,
+                  "k1_launches": k1["kernel"], "train_wall_s": train_wall,
+                  "train_k1_launches": train_k1["kernel"], "reload_max_abs_err": reload_err,
+                  "card_vs_cpu": errs})
     return paths, programs, k1["kernel"]
 
 
@@ -1632,16 +1904,19 @@ def main() -> int:
           f"{len(os.sched_getaffinity(0))}; pyarrow "
           f"{'present' if importlib.util.find_spec('pyarrow') else 'absent'}")
 
-    # phases 14-19: the imaging embed path, then the MIL CV on its bags
+    # phases 14-19: the imaging embed path, then the MIL CV on its bags;
+    # phases 20-22: the MIL fine-tune on the same volumes
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_embed_"))
     try:
-        embed_paths, embed_programs, built_launches = run_embed_path(torch, np, yaml, ap, cli, tmp)
+        embed_paths, embed_programs, built_launches, manifest = run_embed_path(
+            torch, np, yaml, ap, cli, tmp)
+        ft_paths, ft_programs, ft_launches = run_ft_path(torch, np, yaml, ap, cli, tmp, manifest)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    paths += embed_paths
-    programs.update(embed_programs)
+    paths += embed_paths + ft_paths
+    programs.update(embed_programs, **ft_programs)
 
-    # phase 20: the record (times at the training step's shape, and at B=80)
+    # phase 23: the record (times at the training step's shape, and at B=80)
     print(json.dumps({"programs": [
         {"name": name, **{k: v for k, v in rec.items() if k != "prof"}}
         for name, rec in programs.items()]}))
@@ -1651,9 +1926,9 @@ def main() -> int:
         "route": "cuda",
         "source": "src/pd_fusion_torch/csrc/attention_pool.cu",
         "replaces": "src/pd_fusion/ops/pallas_mil.py:26",
-        "launches": res["launches"] + built_launches,
+        "launches": res["launches"] + built_launches + ft_launches,
         "launches_by_path": {"mil_cv_synthetic_bags": res["launches"],
-                             "mil_cv_built_bags": built_launches},
+                             "mil_cv_built_bags": built_launches, "mil_ft_cv": ft_launches},
         "max_abs_err": max_err,
         "ms": t["kernel_ms"],
         "plain_ms": t["plain_ms"],

@@ -16,15 +16,14 @@ runs the single-split pipeline; ``evaluate`` re-evaluates a finished run
 into ``results_eval.yaml``. The invocation string is exported as
 PD_FUSION_COMMAND for provenance. What the port does not have yet raises
 ``NotImplementedError`` naming its ROADMAP item: the ``validate-data``,
-``download-dev`` and ``prepare-dev`` subcommands and the
-``mil_attention_ft`` model.
+``download-dev`` and ``prepare-dev`` subcommands.
 """
 import argparse
 import os
 import sys
 from pathlib import Path
 
-from pd_fusion_torch.experiments.registry import MODEL_REGISTRY, check_ported
+from pd_fusion_torch.experiments.registry import MODEL_REGISTRY
 from pd_fusion_torch.utils.io import load_yaml
 from pd_fusion_torch.utils.logging import setup_logging
 
@@ -92,7 +91,6 @@ def _build_model_overrides(args) -> dict:
                 "or a unimodal_<modality>[_mlp|_gbdt] spec"
             )
         overrides["model_type"] = model
-    check_ported(overrides["model_type"])
     return overrides
 
 

@@ -2,11 +2,13 @@
 (port of ``pd_fusion/data/openneuro_ds001907.py``).
 
 The manifest path comes from the ``PD_FUSION_DS001907_MANIFEST``
-environment override or the config. Two feature modes are ported:
+environment override or the config. Three feature modes are ported:
 ``resnet2d_mil`` (precomputed per-slice bags in ``mri_mil``; the mri mask
-marks rows with a bag) and ``resnet2d`` (mean-pooled ``mri_resnet_*``
-columns; the mri mask marks rows with any feature present). The other
-modes raise ``NotImplementedError`` naming their ROADMAP item. Labels
+marks rows with a bag), ``resnet2d_mil_ft`` (the NIfTI paths of
+``t1wbrain_path`` in ``mri_mil``, for the MIL fine-tune to stream) and
+``resnet2d`` (mean-pooled ``mri_resnet_*`` columns; the mri mask marks
+rows with any feature present). The other modes raise
+``NotImplementedError`` naming their ROADMAP item. Labels
 canonicalize to ``diagnosis``; the clinical/datspect masks are all-zero
 and those groups have no columns (MRI-only dataset).
 """
@@ -26,7 +28,6 @@ _CACHE_ROOT = "data/processed/openneuro_ds001907"
 _NOT_PORTED = {
     "simple": "Queue 1 item 13",
     "cnn3d": "Queue 1 item 13",
-    "resnet2d_mil_ft": "Queue 1 item 11",
 }
 
 
@@ -35,6 +36,16 @@ def _manifest_path(config: Dict) -> Path:
     if override:
         return Path(override)
     return Path(config.get("manifest_path", _DEFAULT_MANIFEST))
+
+
+def _mil_ft_frame(manifest: Path, cache_dir: Path, cfg: Dict) -> pd.DataFrame:
+    """Fine-tune mode: no precomputed features; the NIfTI paths go into
+    ``mri_mil`` for ``MilAttentionFineTuneModel`` to stream."""
+    df = pd.read_csv(manifest)
+    if "t1wbrain_path" not in df.columns:
+        raise ValueError("manifest lacks t1wbrain_path (required for MIL fine-tune)")
+    df["mri_mil"] = df["t1wbrain_path"]
+    return df
 
 
 def load_openneuro_ds001907(config: Dict) -> Tuple[pd.DataFrame, Dict[str, np.ndarray]]:
@@ -50,15 +61,18 @@ def load_openneuro_ds001907(config: Dict) -> Tuple[pd.DataFrame, Dict[str, np.nd
         )
     from pd_fusion_torch.data import openneuro_features as F
 
-    loaders = {"resnet2d": F.load_resnet2d_embeddings,
-               "resnet2d_mil": F.load_resnet2d_mil_embeddings}
+    # feature_mode -> (cache-dir config key, default cache dir, settings key, loader)
+    loaders = {
+        "resnet2d": ("resnet2d_cache_dir", f"{_CACHE_ROOT}/embeddings_resnet2d",
+                     "resnet2d_config", F.load_resnet2d_embeddings),
+        "resnet2d_mil": ("resnet2d_cache_dir", f"{_CACHE_ROOT}/embeddings_resnet2d",
+                         "resnet2d_config", F.load_resnet2d_mil_embeddings),
+        "resnet2d_mil_ft": ("feature_cache_dir", _CACHE_ROOT, "feature_config", _mil_ft_frame),
+    }
     if mode not in loaders:
         raise ValueError(f"unknown feature_mode '{mode}'")
-    df = loaders[mode](
-        manifest,
-        Path(config.get("resnet2d_cache_dir", f"{_CACHE_ROOT}/embeddings_resnet2d")),
-        config.get("resnet2d_config", {}),
-    )
+    dir_key, default_dir, cfg_key, loader = loaders[mode]
+    df = loader(manifest, Path(config.get(dir_key, default_dir)), config.get(cfg_key, {}))
 
     if TARGET_COL not in df.columns:
         if "label" not in df.columns:

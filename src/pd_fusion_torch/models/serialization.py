@@ -3,12 +3,10 @@
 Every MLP-, MoE- or MIL-family model saves a dict artifact tagged with
 ``kind`` and numpy params; the GBDT and host-side models (constant,
 calibrated, conformal) pickle whole objects. ``load_model`` dispatches on whatever it finds,
-which is what the ``evaluate`` subcommand runs on. The kinds whose
-families the port does not have yet raise ``NotImplementedError``.
+which is what the ``evaluate`` subcommand runs on.
 """
 import importlib
 
-from pd_fusion_torch.experiments.registry import check_ported
 from pd_fusion_torch.utils.io import load_pickle
 
 _KIND_LOADERS = {
@@ -17,16 +15,16 @@ _KIND_LOADERS = {
     "fusion_moddrop": ("pd_fusion_torch.models.fusion_moddrop", "ModalityDropoutModel"),
     "moe": ("pd_fusion_torch.models.moe", "MoEModel"),
     "mil_attention": ("pd_fusion_torch.models.mil_attention", "MilAttentionModel"),
+    "mil_attention_ft": ("pd_fusion_torch.models.mil_attention_finetune",
+                         "MilAttentionFineTuneModel"),
 }
 
 
 def load_model(path):
-    """Load any model artifact the port (or the JAX package, for the kinds
-    the port has) produced."""
+    """Load any model artifact the port or the JAX package produced."""
     obj = load_pickle(path)
     if isinstance(obj, dict) and "kind" in obj:
         kind = obj["kind"]
-        check_ported(kind)
         if kind not in _KIND_LOADERS:
             raise ValueError(f"Unknown model artifact kind: {kind}")
         module_name, cls_name = _KIND_LOADERS[kind]

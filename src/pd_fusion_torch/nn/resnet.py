@@ -22,9 +22,18 @@ With no weights file, ``load_backbone`` gives a seeded He-normal init
 would download them. The seeded init draws from a torch generator, so it
 differs from the JAX package's random backbone of the same seed.
 
-Training-mode BN (``resnet_apply_train``, ``_bn_train``,
-``merge_bn_stats``, ``bn_buffer_mask``) comes with the MIL fine-tune
-(ROADMAP Queue 1 item 11).
+Training mode (the MIL fine-tune): ``resnet_apply(train=True)``
+normalizes with batch statistics and leaves the running statistics alone;
+``resnet_apply_train`` also returns the tree with the running statistics
+moved by an EMA (torch ``.train()`` semantics: the biased variance
+normalizes, the unbiased one enters the EMA, momentum 0.1), restricted to
+the images whose ``sample_weight`` is 1. ``nn.BatchNorm2d`` cannot weight
+images, so BN is written out over NCHW. Each residual block is
+rematerialized in training (``torch.utils.checkpoint``, as the JAX
+package's ``jax.checkpoint``); the running statistics are a functional
+output, so the recompute in the backward pass does not move them again.
+``merge_bn_stats`` grafts them onto an optimizer's output, and
+``bn_buffer_mask`` marks the leaves that weight decay may touch.
 """
 import math
 from typing import Any, Dict
@@ -32,6 +41,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -41,6 +51,7 @@ _CONFIGS = {
     "resnet50": {"block": "bottleneck", "layers": [3, 4, 6, 3], "expansion": 4, "emb_dim": 2048},
 }
 BN_EPS = 1e-5
+BN_STATS = ("mean", "var")  # the running-statistic buffers of a BN
 
 
 def emb_dim(arch: str) -> int:
@@ -59,10 +70,42 @@ def _conv(x, w, b=None, stride=1, padding=None):
     return F.conv2d(x.to(w.dtype), w, b, stride=stride, padding=padding)
 
 
-def _bn(x, p):
-    inv = torch.rsqrt(p["var"] + BN_EPS)
-    return ((x - p["mean"][:, None, None]) * (inv * p["gamma"])[:, None, None]
-            + p["beta"][:, None, None])
+def _normalize(x, mean, var, p):
+    inv = torch.rsqrt(var + BN_EPS)
+    return (x - mean[:, None, None]) * (inv * p["gamma"])[:, None, None] + p["beta"][:, None, None]
+
+
+def _bn_infer(x, p):
+    return _normalize(x, p["mean"], p["var"], p), p
+
+
+def _bn_batch(x, p):
+    """``_bn(train=True)`` of the JAX package: batch statistics, no update."""
+    return _normalize(x, torch.mean(x, dim=(0, 2, 3)), torch.var(x, dim=(0, 2, 3), correction=0),
+                      p), p
+
+
+def _bn_train(x, p, momentum, w=None):
+    """Batch-statistic BN with the running-statistic EMA. Normalizes with the
+    biased variance and moves the running variance by the unbiased one,
+    ``n / (n - 1)`` with ``n = sum(w) * H * W``. With ``w`` ([N], 0/1) the
+    statistics are those of the images whose weight is 1: the others are
+    normalized too, but add nothing to the statistics. -> (normalized, the
+    BN's params with the new running statistics, detached)."""
+    if w is None:
+        mean = torch.mean(x, dim=(0, 2, 3))
+        var = torch.var(x, dim=(0, 2, 3), correction=0)
+        n = x.shape[0] * x.shape[2] * x.shape[3]
+        unbiased = var * (n / max(n - 1, 1))
+    else:
+        wb = w[:, None, None, None]
+        n = torch.sum(w) * (x.shape[2] * x.shape[3])
+        mean = torch.sum(x * wb, dim=(0, 2, 3)) / n
+        var = torch.sum(torch.square(x - mean[:, None, None]) * wb, dim=(0, 2, 3)) / n
+        unbiased = var * (n / torch.clamp(n - 1.0, min=1.0))
+    new_p = dict(p, mean=(1.0 - momentum) * p["mean"] + momentum * mean.detach(),
+                 var=(1.0 - momentum) * p["var"] + momentum * unbiased.detach())
+    return _normalize(x, mean, var, p), new_p
 
 
 def _he_conv(gen, cout, cin, kh, kw):
@@ -130,10 +173,21 @@ def params_from_jax(jax_params) -> Dict[str, Any]:
     return _map(jax_params, leaf)
 
 
-def _stem(x, conv1, bias=None, bn=None):
-    out = _conv(x, conv1, bias, stride=2, padding=3)
-    out = torch.relu(_bn(out, bn) if bn is not None else out)
-    return F.max_pool2d(out, 3, stride=2, padding=1)
+def params_to_jax(params):
+    """Inverse of ``params_from_jax``: the JAX package's tree of float32
+    numpy arrays, conv weights HWIO."""
+    def leaf(key, t):
+        a = t.detach().cpu().numpy().astype(np.float32)
+        if key == "w" and a.ndim == 4:
+            a = a.transpose(2, 3, 1, 0)
+        return np.ascontiguousarray(a)
+
+    return _map(params, leaf)
+
+
+def _pool(x):
+    """torch's stem max pool: 3x3, stride 2, padding 1 (with a -inf pad)."""
+    return F.max_pool2d(x, 3, stride=2, padding=1)
 
 
 def _nchw(x):
@@ -141,31 +195,85 @@ def _nchw(x):
     return x.permute(0, 3, 1, 2)
 
 
+def _block(x, p, stride, basic, bn):
+    """One residual block; ``bn(y, bn_params) -> (normalized, bn_params
+    after)``. -> (output, the block's params after)."""
+    new_p = dict(p)
+    if basic:
+        h, new_p["bn1"] = bn(_conv(x, p["conv1"]["w"], stride=stride), p["bn1"])
+        h, new_p["bn2"] = bn(_conv(torch.relu(h), p["conv2"]["w"]), p["bn2"])
+    else:
+        h, new_p["bn1"] = bn(_conv(x, p["conv1"]["w"]), p["bn1"])
+        h, new_p["bn2"] = bn(_conv(torch.relu(h), p["conv2"]["w"], stride=stride), p["bn2"])
+        h, new_p["bn3"] = bn(_conv(torch.relu(h), p["conv3"]["w"]), p["bn3"])
+    identity = x
+    if "downsample" in p:
+        identity, ds_bn = bn(_conv(x, p["downsample"]["conv"]["w"], stride=stride),
+                             p["downsample"]["bn"])
+        new_p["downsample"] = dict(p["downsample"], bn=ds_bn)
+    return torch.relu(h + identity), new_p
+
+
+def _forward(params, x, arch, bn, remat):
+    """NCHW x -> (embeddings, params after every ``bn``). With ``remat`` and
+    autograd on, each block is recomputed in the backward pass."""
+    basic = _CONFIGS[arch]["block"] == "basic"
+    new_params = dict(params)
+    out, new_params["bn1"] = bn(_conv(x, params["conv1"]["w"], stride=2, padding=3), params["bn1"])
+    out = _pool(torch.relu(out))
+    remat = remat and torch.is_grad_enabled()
+    for li in range(4):
+        blocks = []
+        for bi, p in enumerate(params[f"layer{li + 1}"]):
+            stride = 2 if (li > 0 and bi == 0) else 1
+            if remat:
+                out, nb = checkpoint(_block, out, p, stride, basic, bn, use_reentrant=False)
+            else:
+                out, nb = _block(out, p, stride, basic, bn)
+            blocks.append(nb)
+        new_params[f"layer{li + 1}"] = blocks
+    return torch.mean(out, dim=(2, 3)), new_params
+
+
 def resnet_apply(params, x, arch: str = "resnet18", train: bool = False):
     """x [N, H, W, 3] -> embeddings [N, emb_dim] (global-average-pooled;
     no classifier, as torchvision's with ``fc = Identity``). Inference BN
-    from the running statistics."""
-    if train:
-        raise NotImplementedError(
-            "train-mode BN is not ported yet (ROADMAP Queue 1 item 11, the MIL fine-tune)")
-    basic = _CONFIGS[arch]["block"] == "basic"
-    out = _stem(_nchw(x), params["conv1"]["w"], bn=params["bn1"])
-    for li in range(4):
-        for bi, p in enumerate(params[f"layer{li + 1}"]):
-            stride = 2 if (li > 0 and bi == 0) else 1
-            identity = out
-            if basic:
-                h = torch.relu(_bn(_conv(out, p["conv1"]["w"], stride=stride), p["bn1"]))
-                h = _bn(_conv(h, p["conv2"]["w"]), p["bn2"])
-            else:
-                h = torch.relu(_bn(_conv(out, p["conv1"]["w"]), p["bn1"]))
-                h = torch.relu(_bn(_conv(h, p["conv2"]["w"], stride=stride), p["bn2"]))
-                h = _bn(_conv(h, p["conv3"]["w"]), p["bn3"])
-            if "downsample" in p:
-                identity = _bn(_conv(out, p["downsample"]["conv"]["w"], stride=stride),
-                               p["downsample"]["bn"])
-            out = torch.relu(h + identity)
-    return torch.mean(out, dim=(2, 3))
+    from the running statistics; ``train=True``: batch statistics, the
+    running statistics untouched, blocks rematerialized."""
+    return _forward(params, _nchw(x), arch, _bn_batch if train else _bn_infer, remat=train)[0]
+
+
+def resnet_apply_train(params, x, arch: str = "resnet18", momentum: float = 0.1,
+                       sample_weight=None):
+    """Train-mode forward -> (embeddings, params with the running statistics
+    moved by ``_bn_train``); blocks rematerialized. ``sample_weight`` ([N]
+    0/1) restricts every BN's statistics to the weighted images, so a batch
+    padded to a fixed shape has the unpadded batch's statistics."""
+    def bn(y, p):
+        return _bn_train(y, p, momentum, sample_weight)
+
+    return _forward(params, _nchw(x), arch, bn, remat=True)
+
+
+def _map2(a, b, fn, key=None):
+    if isinstance(a, dict):
+        return {k: _map2(v, b[k], fn, k) for k, v in a.items()}
+    if isinstance(a, (list, tuple)):
+        return [_map2(u, v, fn, key) for u, v in zip(a, b)]
+    return fn(key, a, b)
+
+
+def merge_bn_stats(trained_params, stats_params):
+    """``trained_params`` with every BN's running statistics taken from
+    ``stats_params`` (the tree ``resnet_apply_train`` returned)."""
+    return _map2(trained_params, stats_params, lambda k, t, s: s if k in BN_STATS else t)
+
+
+def bn_buffer_mask(params):
+    """A tree of bools, True where weight decay applies: every leaf but the
+    BN running statistics (BN gamma and beta are decayed, as torch's Adam
+    does)."""
+    return _map(params, lambda k, _: k not in BN_STATS)
 
 
 def _fold_pair(conv_p, bn_p):
@@ -199,7 +307,8 @@ def resnet_apply_folded(folded, x, arch: str = "resnet18"):
     equals ``resnet_apply(params, x)`` to float32 rounding. x [N, H, W, 3]
     -> [N, emb_dim], in the dtype of the folded weights."""
     basic = _CONFIGS[arch]["block"] == "basic"
-    out = _stem(_nchw(x), folded["conv1"]["w"], folded["conv1"]["b"])
+    out = _pool(torch.relu(_conv(_nchw(x), folded["conv1"]["w"], folded["conv1"]["b"], stride=2,
+                                 padding=3)))
     for li in range(4):
         for bi, p in enumerate(folded[f"layer{li + 1}"]):
             stride = 2 if (li > 0 and bi == 0) else 1

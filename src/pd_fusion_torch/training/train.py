@@ -6,8 +6,10 @@ Returns ``(model, prep_info)``; prep_info is what downstream code
 dispatches on:
   tuple (imputer, scaler, feature_cols) -> flat-feature families
   dict  {mod: (imputer, scaler, feats)} -> MoE
-  tuple ("mil", mil_col)                -> MIL families
-``mil_attention_ft`` raises ``NotImplementedError`` naming its ROADMAP item.
+  tuple ("mil", mil_col)                -> MIL families (``mil_attention``
+                                           on embedding bags,
+                                           ``mil_attention_ft`` on NIfTI
+                                           paths)
 """
 import logging
 from pathlib import Path
@@ -18,7 +20,6 @@ from pd_fusion_torch.data.feature_utils import get_all_feature_cols, get_modalit
 from pd_fusion_torch.data.missingness import get_modality_mask_matrix
 from pd_fusion_torch.data.preprocess import preprocess_features
 from pd_fusion_torch.data.schema import MODALITIES, TARGET_COL
-from pd_fusion_torch.experiments.registry import check_ported
 from pd_fusion_torch.paths import ROOT_DIR
 from pd_fusion_torch.utils.io import load_yaml
 
@@ -66,14 +67,13 @@ def _maybe_calibrate(config, model, X_val, y_val, masks_val, logger):
 def train_pipeline(config, df_train, df_val, mask_train, mask_val):
     logger = logging.getLogger("pd_fusion")
     model_type = config["model_type"]
-    check_ported(model_type)
     _resolve_params(config, model_type)
 
     y_train = df_train[TARGET_COL].values
     y_val = df_val[TARGET_COL].values
 
-    # --- MIL: bags of per-slice embeddings --------------------------------
-    if model_type == "mil_attention":
+    # --- MIL: bags of per-slice embeddings, or of NIfTI paths -------------
+    if model_type in ("mil_attention", "mil_attention_ft"):
         mil_col = config.get("mil_column", "mri_mil")
         if mil_col not in df_train.columns:
             raise ValueError(f"MIL column '{mil_col}' not found in training data.")
@@ -81,10 +81,15 @@ def train_pipeline(config, df_train, df_val, mask_train, mask_val):
         X_val_bags = df_val[mil_col].tolist()
         if not X_train_bags:
             raise ValueError("No MIL bags found for training.")
-        from pd_fusion_torch.models.mil_attention import MilAttentionModel
+        if model_type == "mil_attention":
+            from pd_fusion_torch.models.mil_attention import MilAttentionModel
 
-        input_dim = int(np.asarray(X_train_bags[0]).shape[1])
-        model = MilAttentionModel(input_dim, config["params"])
+            input_dim = int(np.asarray(X_train_bags[0]).shape[1])
+            model = MilAttentionModel(input_dim, config["params"])
+        else:
+            from pd_fusion_torch.models.mil_attention_finetune import MilAttentionFineTuneModel
+
+            model = MilAttentionFineTuneModel(config["params"])
         model.train(X_train_bags, y_train, (X_val_bags, y_val))
         model = _maybe_calibrate(config, model, X_val_bags, y_val, mask_val, logger)
         return model, ("mil", mil_col)

@@ -13,9 +13,11 @@ MoE trainers and the MLP forward, card against CPU),
 ``pd_fusion_torch/ops/isotonic_checks.py`` (device isotonic against the
 host fit), ``pd_fusion_torch/nn/gbdt_checks.py`` (GBDT determinism,
 fold batching, card against CPU with the split-optimality audit,
-TreeSHAP) and ``pd_fusion_torch/imaging/embed_checks.py`` (the ResNet
-backbones and the embed pipeline, card against CPU), which
-``chip_smoke.py`` runs too.
+TreeSHAP), ``pd_fusion_torch/imaging/embed_checks.py`` (the ResNet
+backbones and the embed pipeline, card against CPU) and
+``pd_fusion_torch/models/ft_checks.py`` (one MIL fine-tune step at full
+width, frozen and not, card against CPU), which ``chip_smoke.py`` runs
+too.
 """
 import pytest
 import torch
@@ -152,3 +154,17 @@ def test_embed_pipeline_on_the_card_matches_the_cpu(cuda, tmp_path):
     cpu, card = out["cpu"], out[str(cuda)]
     assert card.shape == (10, 9, 512)
     assert np.abs(card - cpu).max() <= embed_checks.F32_REL * np.abs(cpu).max()
+
+
+def test_mil_finetune_step_on_the_card_matches_the_cpu(cuda):
+    """One fine-tune step (ResNet-50 at 224^2, B=2, L=8, gated head, focal
+    loss, a ragged row) with the gate at 0 and at 1, card against CPU
+    (``models/ft_checks.py``'s tolerances); K1 carries the head on the card."""
+    from pd_fusion_torch.models import ft_checks
+    from pd_fusion_torch.utils.device import get_device
+
+    get_device(cuda)  # TF32 off
+    before = ap.launch_counts["kernel"]
+    errs = ft_checks.compare_card_with_cpu(cuda)
+    assert set(errs) == {"gate0", "gate1"}
+    assert ap.launch_counts["kernel"] == before + 2

@@ -30,6 +30,9 @@ SLICE_MODULES = ("ops.isotonic", "ops.isotonic_checks", "nn.moe", "models.moe", 
 EMBED_MODULES = ("imaging.nifti", "imaging.native", "imaging.pipeline", "imaging.embed_checks",
                  "ops.image", "nn.resnet", "data.openneuro_features", "data.openneuro_ds001907",
                  "scripts.build_resnet2d_embeddings", "scripts.build_resnet2d_mil_embeddings")
+# the MIL fine-tune slice
+FT_MODULES = ("models.mil_attention_finetune", "models.ft_checks", "nn.ft_optim",
+              "training.callbacks", "utils.checkpoint", "utils.profiling")
 
 
 def test_port_imports_without_jax_or_jax_package():
@@ -40,9 +43,10 @@ def test_port_imports_without_jax_or_jax_package():
     ).stdout.strip()
     count, rest = out.split(maxsplit=1)
     bad, names = rest.split("] ", 1)
-    assert int(count) >= 38  # every module of the port was imported
+    assert int(count) >= 43  # every module of the port was imported
     assert bad + "]" == "[]"
-    assert {f"pd_fusion_torch.{m}" for m in SLICE_MODULES + EMBED_MODULES} <= set(names.split())
+    assert ({f"pd_fusion_torch.{m}" for m in SLICE_MODULES + EMBED_MODULES + FT_MODULES}
+            <= set(names.split()))
 
 
 def _imported_modules(path: Path):

@@ -331,12 +331,21 @@ def test_cli_reads_cv_folds_from_config_as_given(monkeypatch, tmp_path):
     assert calls == [("full",), ("cv", 5), ("cv", 3)]
 
 
-def test_cli_refuses_what_is_not_ported():
+def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
     from pd_fusion_torch import cli
+    from pd_fusion_torch.paths import ROOT_DIR
 
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14"):
         cli.main(["validate-data", "--config", "configs/data_ppmi.yaml"])
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
-        cli.main(["run", "--config", MIL_CONFIG, "--model", "mil_attention_ft"])
+    # the cnn3d feature mode of ds001907 (configs/data_openneuro_ds001907.yaml)
+    manifest = tmp_path / "manifest.csv"
+    manifest.write_text("subject_id,session,label,t1wbrain_path\n")
+    monkeypatch.setenv("PD_FUSION_DS001907_MANIFEST", str(manifest))
+    cfg = yaml.safe_load((ROOT_DIR / MIL_CONFIG).read_text())
+    cfg["data_config"] = str(ROOT_DIR / "configs/data_openneuro_ds001907.yaml")
+    config = tmp_path / "cnn3d.yaml"
+    config.write_text(yaml.safe_dump(cfg))
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
+        cli.main(["run", "--config", str(config), "--output-dir", str(tmp_path / "run")])
     with pytest.raises(NotImplementedError, match="item 14"):
         cli.main(["run", "--config", MIL_CONFIG, "--dataset", "uci_parkinsons"])

@@ -12,6 +12,7 @@ subjects within rounding of each other may swap order (one swap moves
 ROC-AUC by 1/(n_pos * n_neg), about 2e-4 on the quickstart's 100).
 """
 import numpy as np
+import pandas as pd
 import pytest
 import torch
 import yaml
@@ -284,21 +285,39 @@ def test_evaluate_run_reproduces_the_runs_deterministic_scenarios(tmp_path):
             assert again[scen][metric] == pytest.approx(v, abs=1e-6), (scen, metric)
 
 
-def test_load_model_refuses_the_kinds_not_ported(tmp_path):
+def test_load_model_dispatches_the_ft_kind_and_refuses_unknown_kinds(tmp_path):
+    from pd_fusion_torch.models.mil_attention_finetune import MilAttentionFineTuneModel
     from pd_fusion_torch.utils.io import save_pickle
 
-    save_pickle({"kind": "mil_attention_ft"}, tmp_path / "m.pt")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        load_model(tmp_path / "m.pt")
+    m = MilAttentionFineTuneModel({"backbone": "resnet18", "pretrained": False,
+                                   "hidden_dim": 8, "attn_dim": 4})
+    m.save(tmp_path / "ft.pt")
+    loaded = load_model(tmp_path / "ft.pt")
+    assert isinstance(loaded, MilAttentionFineTuneModel)
+    assert torch.equal(loaded.backbone_params["conv1"]["w"], m.backbone_params["conv1"]["w"])
+    assert torch.equal(loaded.head_params["instance"]["w"], m.head_params["instance"]["w"])
     save_pickle({"kind": "nonsense"}, tmp_path / "m.pt")
     with pytest.raises(ValueError):
         load_model(tmp_path / "m.pt")
 
 
-def test_train_pipeline_refuses_the_families_not_ported():
-    df, masks = _data()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        train_pipeline({"model_type": "mil_attention_ft", "params": {}}, df, df, masks, masks)
+def test_train_pipeline_trains_the_mil_finetune():
+    """``mil_attention_ft`` through ``train_pipeline``: bags of prepped slice
+    arrays (and one absent bag), the MIL prep info, finite probabilities."""
+    from pd_fusion_torch.models.mil_attention_finetune import MilAttentionFineTuneModel
+
+    rng = np.random.RandomState(0)
+    bags = [rng.rand(4, 16, 16).astype(np.float32) for _ in range(8)] + [None]
+    df = pd.DataFrame({"mri_mil": bags, TARGET_COL: [0, 1] * 4 + [1]})
+    masks = {"mri": np.array([1] * 8 + [0])}
+    config = {"model_type": "mil_attention_ft",
+              "params": {"backbone": "resnet18", "pretrained": False, "input_size": 32,
+                         "hidden_dim": 8, "attn_dim": 4, "batch_size": 4, "epochs": 1,
+                         "freeze_backbone_epochs": 0}}
+    model, prep = train_pipeline(config, df, df, masks, masks)
+    assert isinstance(model, MilAttentionFineTuneModel) and prep == ("mil", "mri_mil")
+    probs = predict_for_masks(model, df, masks, prep)
+    assert probs.shape == (9,) and np.isfinite(probs).all() and probs[-1] == np.float32(0.5)
 
 
 def test_model_loads_the_jax_packages_artifact(tmp_path):

@@ -134,7 +134,33 @@ Phases; any failure exits non-zero before the final line:
    then the single split (``results.yaml``, ``model.pt``), the artifact
    reloaded with ``load_model`` predicting as the trained model with
    ``tta_inference`` 1; and a predict chunk with TTA 4 profiled;
-23. a JSON line with each device program's host and device time and
+23. the simple 3-D statistics (``ops/volume_stats.py``) of 8 of phase 14's
+   volumes at the feature config's width (96^3, 10 bins, grid 8) on the
+   card against the CPU, ``extra_stats`` off and on
+   (``pd_fusion_torch/ops/volume_stats_checks.py``, shared with the
+   ``cuda`` tests: order statistics and histogram equal), then the batch
+   timed (device and host time, launches, busy share) beside its bound by
+   bytes;
+24. one CNN3D training step (``nn/cnn3d.py``) at the data config's
+   ``cnn_config`` (64^3, embedding 64, batch 8) on the card against the CPU
+   from one init and batch (``nn/cnn3d_checks.py``: loss, Adam moments,
+   each device's weights against its own Adam step, embeddings); the step
+   timed there and at the runbook's width (96^3, 128, batch 4): device and
+   host time, launches, busy share, peak memory, TFLOP/s against the float32
+   bound; the embed forward of 96 volumes at 64^3;
+25. the CNN3D builder (``python -m
+   pd_fusion_torch.scripts.build_cnn3d_embeddings`` with the ``cnn_config``
+   flags) on the 96 volumes: wall split into read, init, train, embed and
+   write; then the CLI's 5-fold CV on a copy of
+   ``configs/openneuro_ds001907_simple.yaml`` pointed at that manifest and
+   cache (``feature_mode: cnn3d``): artifacts, the 7 scenarios, K1 launched
+   neither as kernel nor plain;
+26. the same CV with ``feature_mode: simple``: the features build on first
+   load (wall split into feature build and CV);
+27. ``run --config configs/quickstart.yaml --dataset uci_parkinsons --k-fold
+   5`` on a seeded fixture file with UCI's columns, written under a
+   temporary ``PD_FUSION_DEV_DATA_DIR`` (nothing fetched);
+28. a JSON line with each device program's host and device time and
    launches a step; one with each path's wall time, busy share and AUC;
    one with each kernel's launches (by path), error and times (B=16 and
    B=80, and the launch floor); the card line again; then ``{"ok": true,
@@ -777,8 +803,9 @@ def program_profile(torch, fn, steps=1, calls=1):
 
 
 def print_program(name, rec):
+    events = f", {rec['event_ms'] * 1e3:.1f} us between CUDA events" if "event_ms" in rec else ""
     print(f"  program {name}: {rec['steps']} step(s), host {rec['host_us_per_step']:.1f} us a step "
-          f"(unprofiled), device {rec['device_us_per_step']:.1f} us a step, "
+          f"(unprofiled), device {rec['device_us_per_step']:.1f} us a step{events}, "
           f"{rec['launches_per_step']:.1f} launches a step, busy share under the profiler "
           f"{rec['busy_share']:.4f}")
 
@@ -1693,6 +1720,321 @@ def run_ft_path(torch, np, yaml, ap, cli, tmp: Path, manifest: Path):
     return paths, programs, k1["kernel"]
 
 
+# ---------------------------------------------------------------------------
+# the ds001907 volume-feature path and a dev dataset (phases 23-27)
+# ---------------------------------------------------------------------------
+
+SIMPLE_CONFIG = ROOT / "configs" / "openneuro_ds001907_simple.yaml"
+VOLUME_CHECKS = 10  # volumes of phase 14 in the CNN3D step's card-vs-CPU check
+EMBED_TIMED = 96  # volumes in the timed CNN3D embed forward
+
+
+def volume_config_copy(yaml, tmp: Path, manifest: Path, cache: Path, mode: str):
+    """A copy of configs/openneuro_ds001907_simple.yaml whose data config
+    points at ``manifest`` and ``cache`` with ``feature_mode: mode``; every
+    other setting stays the repo's. -> config path."""
+    cfg = yaml.safe_load(SIMPLE_CONFIG.read_text())
+    data_cfg = yaml.safe_load((ROOT / cfg["data_config"]).read_text())
+    data_cfg.update(manifest_path=str(manifest), feature_mode=mode, feature_cache_dir=str(cache),
+                    embedding_cache_dir=str(cache))
+    (tmp / f"data_volume_{mode}.yaml").write_text(yaml.safe_dump(data_cfg))
+    cfg["data_config"] = str(tmp / f"data_volume_{mode}.yaml")
+    path = tmp / f"volume_{mode}.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    return path
+
+
+def run_cli_checked(yaml, ap, cli, argv, out: Path, k: int, what: str):
+    """One CV run through the CLI: its artifacts, the eval config's
+    scenarios, a finite full-observation ROC-AUC, K1 launched neither as
+    kernel nor plain. -> (wall s, aggregated results, K1 launch counts)."""
+    ap.reset_launch_counts()
+    t0 = time.perf_counter()
+    agg = cli.main(argv + ["--output-dir", str(out)])
+    wall = time.perf_counter() - t0
+    k1 = dict(ap.launch_counts)
+    if k1 != {"kernel": 0, "plain": 0}:
+        raise RuntimeError(f"{what} launched K1: {k1}")
+    names = ["results_aggregated.yaml", "fold_assignments.csv", "summary_table.csv",
+             "provenance.yaml"]
+    names += [f"results_fold_{i}.yaml" for i in range(1, k + 1)]
+    names += [f"preds_fold_{i}_full_observation.csv" for i in range(1, k + 1)]
+    require_files(out, names, what)
+    on_disk = yaml.safe_load((out / "results_aggregated.yaml").read_text())
+    eval_cfg = yaml.safe_load((out / "eval_config.yaml").read_text())
+    scens = [s["name"] for s in eval_cfg["scenarios"]]
+    auc = on_disk["full_observation"]["roc_auc"]["mean"]
+    if set(on_disk) != set(agg) or set(on_disk) != set(scens) or not math.isfinite(auc):
+        raise RuntimeError(f"{what}: scenarios {sorted(on_disk)}, ROC-AUC {auc}")
+    return wall, on_disk, k1
+
+
+def top_ops(torch, prof, calls, n=6):
+    """The ``n`` device rows of a ``program_profile`` with the most device
+    time: (name, ms a call, launches a call)."""
+    rows = sorted(device_rows(torch, prof.key_averages()), key=_dev_ms, reverse=True)
+    return [(e.key[:80], _dev_ms(e) / calls, e.count / calls) for e in rows[:n]]
+
+
+def with_event_time(torch, rec, fn, reps=5):
+    """``rec`` with ``event_ms``: a call between two CUDA events on its
+    stream, median of ``reps`` (a second device clock beside the profiler's
+    kernel sum; for a device-bound program the two agree)."""
+    rec["event_ms"] = _median_event_ms(torch, fn, reps)
+    return rec
+
+
+def print_top(rec):
+    for op, ms, count in rec["top"]:
+        print(f"    {ms:10.3f} ms  x{count:<6.1f} {op}")
+
+
+@contextlib.contextmanager
+def cudnn_weight_gradients(torch, cnn3d):
+    """The CNN3D layers as the plain ops, so that autograd takes cuDNN's own
+    weight gradients (the port writes them as batched matrix products):
+    the other arm of a comparison in turns."""
+    import torch.nn.functional as F
+
+    class Conv:
+        apply = staticmethod(lambda x, w, b: F.conv3d(x, w, b, padding=1))
+
+    class Deconv:
+        apply = staticmethod(lambda x, w, b: F.conv_transpose3d(x, w, b, stride=2))
+
+    ours = cnn3d._Conv3x3, cnn3d._Deconv2
+    cnn3d._Conv3x3, cnn3d._Deconv2 = Conv, Deconv
+    try:
+        yield
+    finally:
+        cnn3d._Conv3x3, cnn3d._Deconv2 = ours
+
+
+def step_program(torch, cnn3d, cfg, lr):
+    """One CNN3D train step at ``cfg``'s widths on the card, from a seeded
+    init on z-scored synthetic volumes (``program_profile``), with its peak
+    memory, TFLOP/s and bound; then the step's time (CUDA events, median of
+    5 calls) in turns against the step through cuDNN's weight gradients
+    (ours, cuDNN's, cuDNN's, ours)."""
+    from pd_fusion_torch.nn import cnn3d_checks as cc
+
+    shape, B, E = tuple(cfg["target_shape"]), int(cfg["batch_size"]), int(cfg["embedding_dim"])
+    x = torch.from_numpy(cc.synthetic_volumes(B, shape, seed=5)).to(DEV)[:, None]
+    w = torch.ones(B, device=DEV)
+    st = {"p": cnn3d.params_to(cnn3d.cnn3d_init(torch.Generator().manual_seed(0), shape, E), DEV)}
+    st["opt"] = cnn3d.init_opt(st["p"])
+
+    def step():
+        st["p"], _ = cnn3d.train_step(st["p"], st["opt"], x, w, lr, shape)
+
+    turns = {"gemm_wgrad_ms": [], "cudnn_wgrad_ms": []}
+    for arm in ("gemm_wgrad_ms", "cudnn_wgrad_ms", "cudnn_wgrad_ms", "gemm_wgrad_ms"):
+        with (cudnn_weight_gradients(torch, cnn3d) if arm == "cudnn_wgrad_ms"
+              else contextlib.nullcontext()):
+            step()
+            turns[arm].append(_median_event_ms(torch, step, 5))
+    with cudnn_weight_gradients(torch, cnn3d):
+        _, prof = profiled(torch, step)
+    rec = with_event_time(torch, program_profile(torch, step, calls=2), step)
+    rec["turns"] = turns
+    rec["cudnn_top"] = top_ops(torch, prof, 1, n=3)
+    rec["top"] = top_ops(torch, rec.pop("prof"), 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    flops = cc.train_step_flops(shape, E, B)
+    rec["gflop"] = flops / 1e9
+    rec["tflops"] = flops / (rec["device_us_per_step"] / 1e6) / 1e12
+    rec["bound_us"], rec["bound_by"] = flops / H100_F32_FLOPS * 1e6, "operations"
+    return rec
+
+
+def run_volume_path(torch, np, yaml, ap, cli, tmp: Path, manifest: Path):
+    """Phases 23-27: the simple statistics card vs CPU and timed; one CNN3D
+    step card vs CPU, timed at the data config's and the runbook's widths,
+    and the embed forward; the CNN3D builder script on the 96 volumes and
+    the CLI's CV on its embeddings; the CV with the simple features built on
+    first load; ``--dataset uci_parkinsons`` on a seeded fixture. ->
+    (paths, programs, K1 launches by path)."""
+    import os
+
+    import pandas as pd
+
+    from pd_fusion_torch.data import openneuro_features
+    from pd_fusion_torch.data.dev_datasets.uci_parkinsons import synthetic_frame
+    from pd_fusion_torch.imaging.pipeline import VolumePrefetcher, load_volume, make_volume_loader
+    from pd_fusion_torch.nn import cnn3d
+    from pd_fusion_torch.nn import cnn3d_checks as cc
+    from pd_fusion_torch.ops import volume_stats_checks as vsc
+    from pd_fusion_torch.ops.image import zscore_volume
+    from pd_fusion_torch.ops.volume_stats import n_features, simple_volume_features
+    from pd_fusion_torch.paths import DEV_DATA_ENV
+    from pd_fusion_torch.scripts import build_cnn3d_embeddings as script
+
+    data_cfg = yaml.safe_load((ROOT / yaml.safe_load(SIMPLE_CONFIG.read_text())["data_config"])
+                              .read_text())
+    feat_cfg, cnn_cfg = data_cfg["feature_config"], data_cfg["cnn_config"]
+    if {**cnn_cfg, "target_shape": tuple(cnn_cfg["target_shape"])} != {
+            **cc.CNN_CONFIG, "epochs": cnn_cfg["epochs"]}:
+        raise RuntimeError(f"cnn3d_checks.CNN_CONFIG is not the data config's {cnn_cfg}")
+    paths_df = pd.read_csv(manifest)
+    vol_paths = paths_df["t1wbrain_path"].tolist()
+    programs, paths, launches = {}, [], {}
+    t_phases = time.perf_counter()
+
+    # phase 23: the simple statistics of one batch, card against CPU, then timed
+    bins, grid = int(feat_cfg["hist_bins"]), int(feat_cfg["grid_size"])
+    target = tuple(feat_cfg["target_shape"])
+    B = openneuro_features.STATS_BATCH
+    vols = np.stack([v for _, v in VolumePrefetcher(vol_paths[:B], make_volume_loader(target),
+                                                    depth=8)])
+    t0 = time.perf_counter()
+    errs = vsc.compare_card_with_cpu(vols, DEV, bins, grid)
+    print(f"simple_volume_features card vs CPU ({B} of phase 14's volumes at {target}, {bins} bins, "
+          f"grid {grid}; order statistics and histogram equal, the rest within "
+          f"ops/volume_stats_checks.py's bounds): {json.dumps(errs)}; {time.perf_counter() - t0:.3f} s")
+    on_card = torch.from_numpy(vols).to(DEV)
+    for extra in (False, True):
+        stats = lambda: simple_volume_features(on_card, bins, grid, extra)  # noqa: E731
+        rec = with_event_time(torch, program_profile(torch, stats, calls=2), stats)
+        rec["top"] = top_ops(torch, rec.pop("prof"), 2)
+        n_bytes = vols.nbytes + B * n_features(bins, grid, extra) * 4
+        rec["bytes"] = n_bytes
+        rec["bound_us"], rec["bound_by"] = n_bytes / H100_BYTES_PER_S * 1e6, "bytes"
+        name = f"volume_stats_batch{B}_{'extra' if extra else 'plain'}"
+        print_program(f"{name} ({B} x {target}, {bins} bins, grid {grid})", rec)
+        print(f"    bound {rec['bound_us']:.3f} us by bytes ({n_bytes} B at 3.35 TB/s): "
+              f"{rec['bound_us'] / rec['device_us_per_step']:.4f} of the device time")
+        print_top(rec)
+        programs[name] = rec
+    del on_card
+
+    # phase 24: one CNN3D step card vs CPU, then the step timed at both widths
+    # and the embed forward
+    shape = tuple(cnn_cfg["target_shape"])
+    t0 = time.perf_counter()
+    check_vols = np.stack([zscore_volume(torch.from_numpy(load_volume(p, shape))).numpy()
+                           for p in vol_paths[:VOLUME_CHECKS]])
+    step_errs = cc.compare_card_with_cpu(check_vols, DEV, cc.CNN_CONFIG)
+    print(f"CNN3D step card vs CPU ({cc.CNN_CONFIG}; nn/cnn3d_checks.py tolerances): "
+          f"{json.dumps(step_errs)}; {time.perf_counter() - t0:.3f} s")
+    lr = float(cnn_cfg["lr"])
+    for name, cfg in (("cnn3d_step_cnn_config", cc.CNN_CONFIG),
+                      ("cnn3d_step_runbook", cc.RUNBOOK_CONFIG)):
+        rec = step_program(torch, cnn3d, cfg, lr)
+        print_program(f"{name} ({cfg})", rec)
+        print(f"    {rec['gflop']:.3f} GFLOP a step, {rec['tflops']:.3f} TFLOP/s; bound "
+              f"{rec['bound_us']:.1f} us at 67 TFLOP/s float32 "
+              f"({rec['bound_us'] / rec['device_us_per_step']:.4f} of it); peak "
+              f"{rec['peak_gib']:.3f} GiB; in turns (CUDA events, ours, cuDNN's, cuDNN's, ours): "
+              f"weight gradients as matrix products {rec['turns']['gemm_wgrad_ms']} ms, "
+              f"cuDNN's {rec['turns']['cudnn_wgrad_ms']} ms; the step through cuDNN's weight "
+              f"gradients, its top kernels:")
+        print_top({"top": rec["cudnn_top"]})
+        print("    ours, its top kernels:")
+        print_top(rec)
+        programs[name] = rec
+    E = int(cnn_cfg["embedding_dim"])
+    params = cnn3d.params_to(cnn3d.cnn3d_init(torch.Generator().manual_seed(0), shape, E), DEV)
+    x96 = torch.from_numpy(cc.synthetic_volumes(EMBED_TIMED, shape, seed=6)).to(DEV)[:, None]
+    embed = lambda: cnn3d.cnn3d_embed(params, x96, shape)  # noqa: E731
+    rec = with_event_time(torch, program_profile(torch, embed, calls=2), embed)
+    rec["top"] = top_ops(torch, rec.pop("prof"), 2)
+    flops = EMBED_TIMED * sum(cc.forward_flops(shape, E).values())
+    n_bytes = x96.numel() * 4 + EMBED_TIMED * E * 4 + sum(t.numel() * 4 for t in cnn3d.leaves(params))
+    rec["tflops"] = flops / (rec["device_us_per_step"] / 1e6) / 1e12
+    rec["bound_us"], rec["bound_by"] = embed_bound(flops, n_bytes, H100_F32_FLOPS)
+    print_program(f"cnn3d_embed ({EMBED_TIMED} x {shape}, embedding {E})", rec)
+    print(f"    {flops / 1e9:.3f} GFLOP, {rec['tflops']:.3f} TFLOP/s; bound {rec['bound_us']:.1f} "
+          f"us ({rec['bound_by']})")
+    print_top(rec)
+    programs[f"cnn3d_embed_{EMBED_TIMED}"] = rec
+    del x96, params
+
+    # phase 25: the CNN3D builder script on the 96 volumes with the data
+    # config's cnn_config, then the CLI's CV on its embeddings
+    cache = tmp / "cnn3d_cache"
+    argv = ["--manifest", str(manifest), "--out-dir", str(cache),
+            "--target-shape", *map(str, cnn_cfg["target_shape"]),
+            "--embedding-dim", str(E), "--epochs", str(cnn_cfg["epochs"]),
+            "--batch-size", str(cnn_cfg["batch_size"]), "--lr", str(cnn_cfg["lr"])]
+    if script.config_from_args(script.parse_args(argv)) != cnn_cfg:
+        raise RuntimeError(f"the script's flags do not give the data config's {cnn_cfg}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    built = script.main(argv)
+    build_wall = time.perf_counter() - t0
+    emb = pd.read_parquet(built["path"]).filter(like="mri_cnn_").to_numpy()
+    if emb.shape != (len(vol_paths), E) or not np.isfinite(emb).all():
+        raise RuntimeError(f"the CNN3D embeddings: shape {emb.shape}, finite "
+                           f"{np.isfinite(emb).all()}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"CNN3D build (python -m pd_fusion_torch.scripts.build_cnn3d_embeddings, "
+          f"{len(vol_paths)} volumes, {cnn_cfg}): wall {build_wall:.3f} s, stages "
+          f"{json.dumps({k: round(v, 3) for k, v in built['stages'].items()})}, peak {peak:.3f} GiB")
+    config = volume_config_copy(yaml, tmp, manifest, cache, "cnn3d")
+    k = int(yaml.safe_load(config.read_text())["cv_folds"])
+    wall, agg, launches["cnn3d_cv"] = run_cli_checked(
+        yaml, ap, cli, ["run", "--config", str(config)], tmp / "cnn3d_run", k, "the cnn3d CV")
+    require_files(tmp / "cnn3d_run", plot_files(PLOTS, "_fold1"), "the cnn3d CV")
+    auc = agg["full_observation"]["roc_auc"]
+    print(f"cnn3d CV (copy of {SIMPLE_CONFIG.name}, feature_mode cnn3d: fusion_moddrop, "
+          f"calibrated, nested, {k}-fold): wall {wall:.3f} s, full_observation ROC-AUC "
+          f"{auc['mean']:.4f} +- {auc['std']:.4f}, K1 launches 0, plain 0")
+    paths.append({"name": "cnn3d_build", "volumes": len(vol_paths), "wall_s": build_wall,
+                  "peak_gib": peak, **built["stages"]})
+    paths.append({"name": "cnn3d_cv", "wall_s": wall, "auc": auc["mean"]})
+
+    # phase 26: the same CV with feature_mode simple: the features build on
+    # first load
+    config = volume_config_copy(yaml, tmp, manifest, tmp / "simple_cache", "simple")
+    stages = {}
+    with timed(torch, openneuro_features, "load_simple_features", stages, "build_s"):
+        wall, agg, launches["simple_cv"] = run_cli_checked(
+            yaml, ap, cli, ["run", "--config", str(config)], tmp / "simple_run", k,
+            "the simple CV")
+    feats = pd.read_parquet(next((tmp / "simple_cache").glob("features_*.parquet")))
+    cols = [c for c in feats if c.startswith("mri_feat_")]
+    if len(feats) != len(vol_paths) or len(cols) != n_features(bins, grid) or not np.isfinite(
+            feats[cols].to_numpy()).all():
+        raise RuntimeError(f"the simple features: {feats.shape}")
+    auc = agg["full_observation"]["roc_auc"]
+    print(f"simple CV (feature_mode simple, {feat_cfg}): wall {wall:.3f} s = feature build "
+          f"{stages['build_s']:.3f} s ({len(vol_paths) / stages['build_s']:.2f} volumes/s) + CV "
+          f"{wall - stages['build_s']:.3f} s; full_observation ROC-AUC {auc['mean']:.4f} +- "
+          f"{auc['std']:.4f}, K1 launches 0, plain 0")
+    paths.append({"name": "simple_cv", "wall_s": wall, "feature_build_s": stages["build_s"],
+                  "cv_s": wall - stages["build_s"], "auc": auc["mean"]})
+
+    # phase 27: a dev dataset through the CLI, on a seeded fixture file
+    dev = tmp / "dev_data"
+    (dev / "uci").mkdir(parents=True)
+    synthetic_frame().to_csv(dev / "uci" / "parkinsons.data", index=False)
+    before = os.environ.get(DEV_DATA_ENV)
+    os.environ[DEV_DATA_ENV] = str(dev)
+    try:
+        wall, agg, launches["uci_parkinsons_cv"] = run_cli_checked(
+            yaml, ap, cli, ["run", "--config", str(QUICKSTART), "--dataset", "uci_parkinsons",
+                            "--k-fold", "5"], tmp / "uci_run", 5, "the uci_parkinsons CV")
+    finally:
+        if before is None:
+            os.environ.pop(DEV_DATA_ENV)
+        else:
+            os.environ[DEV_DATA_ENV] = before
+    auc = agg["full_observation"]["roc_auc"]
+    print(f"uci_parkinsons CV (run --config {QUICKSTART.name} --dataset uci_parkinsons --k-fold 5 "
+          f"on a seeded 195-row fixture with UCI's columns): wall {wall:.3f} s, full_observation "
+          f"ROC-AUC {auc['mean']:.4f} +- {auc['std']:.4f}, K1 launches 0, plain 0")
+    paths.append({"name": "uci_parkinsons_cv", "wall_s": wall, "auc": auc["mean"]})
+    print(f"phases 23-27: {time.perf_counter() - t_phases:.3f} s")
+    programs[f"volume_stats_batch{B}_plain"]["card_vs_cpu"] = errs
+    programs["cnn3d_step_cnn_config"]["card_vs_cpu"] = step_errs
+    return paths, programs, launches
+
+
 def _tensors(tree, prefix=""):
     if isinstance(tree, dict):
         for k, v in tree.items():
@@ -1911,12 +2253,16 @@ def main() -> int:
         embed_paths, embed_programs, built_launches, manifest = run_embed_path(
             torch, np, yaml, ap, cli, tmp)
         ft_paths, ft_programs, ft_launches = run_ft_path(torch, np, yaml, ap, cli, tmp, manifest)
+        # phases 23-27: the ds001907 volume-feature path on the same volumes;
+        # a dev dataset
+        vol_paths, vol_programs, vol_launches = run_volume_path(torch, np, yaml, ap, cli, tmp,
+                                                                manifest)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    paths += embed_paths + ft_paths
-    programs.update(embed_programs, **ft_programs)
+    paths += embed_paths + ft_paths + vol_paths
+    programs.update(embed_programs, **ft_programs, **vol_programs)
 
-    # phase 23: the record (times at the training step's shape, and at B=80)
+    # phase 28: the record (times at the training step's shape, and at B=80)
     print(json.dumps({"programs": [
         {"name": name, **{k: v for k, v in rec.items() if k != "prof"}}
         for name, rec in programs.items()]}))
@@ -1926,9 +2272,11 @@ def main() -> int:
         "route": "cuda",
         "source": "src/pd_fusion_torch/csrc/attention_pool.cu",
         "replaces": "src/pd_fusion/ops/pallas_mil.py:26",
-        "launches": res["launches"] + built_launches + ft_launches,
+        "launches": res["launches"] + built_launches + ft_launches + sum(
+            k1["kernel"] for k1 in vol_launches.values()),
         "launches_by_path": {"mil_cv_synthetic_bags": res["launches"],
-                             "mil_cv_built_bags": built_launches, "mil_ft_cv": ft_launches},
+                             "mil_cv_built_bags": built_launches, "mil_ft_cv": ft_launches,
+                             **{name: k1["kernel"] for name, k1 in vol_launches.items()}},
         "max_abs_err": max_err,
         "ms": t["kernel_ms"],
         "plain_ms": t["plain_ms"],

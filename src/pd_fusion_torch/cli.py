@@ -4,6 +4,8 @@
         [--model M] [--k-fold K] [--seed S] [--output-dir D] [--dataset N]
     python -m pd_fusion_torch.cli train --config <abs path> [--synthetic]
     python -m pd_fusion_torch.cli evaluate --config <eval config> --run-dir <run>
+    python -m pd_fusion_torch.cli validate-data --config <data config> [--columns C]
+    python -m pd_fusion_torch.cli prepare-dev
 
 ``run`` has the JAX package's flags and semantics: ``--k-fold`` or a
 ``cv_folds``/``k_folds`` key in the config selects the CV pipeline, else
@@ -13,10 +15,13 @@ relative path from another directory skips CV, so pass an absolute path.
 ``--model`` expands as in the JAX CLI (``unimodal_<mod>[_mlp|_gbdt]``
 picks a backbone and loads the sibling model config's params). ``train``
 runs the single-split pipeline; ``evaluate`` re-evaluates a finished run
-into ``results_eval.yaml``. The invocation string is exported as
-PD_FUSION_COMMAND for provenance. What the port does not have yet raises
-``NotImplementedError`` naming its ROADMAP item: the ``validate-data``,
-``download-dev`` and ``prepare-dev`` subcommands.
+into ``results_eval.yaml``. ``validate-data`` maps and merges the raw PPMI
+CSVs a data config names into the processed parquet; ``prepare-dev`` loads
+each UCI dev dataset under ``paths.dev_data_dir()`` and prints its shape or
+why it is unavailable. The invocation string is exported as
+PD_FUSION_COMMAND for provenance. ``download-dev`` raises
+``NotImplementedError``: it fetches the dev datasets from outside the
+repository, and a later slice ports it.
 """
 import argparse
 import os
@@ -29,9 +34,8 @@ from pd_fusion_torch.utils.logging import setup_logging
 
 # subcommands of the JAX CLI that the port does not run yet
 _NOT_PORTED = {
-    "validate-data": "ROADMAP Queue 1 item 14 (PPMI suites)",
-    "download-dev": "ROADMAP Queue 1 item 14",
-    "prepare-dev": "ROADMAP Queue 1 item 14",
+    "download-dev": "it fetches the UCI and OpenNeuro dev datasets from outside the "
+                    "repository; a later slice ports it (ROADMAP Queue 1 item 14c)",
 }
 
 
@@ -94,9 +98,37 @@ def _build_model_overrides(args) -> dict:
     return overrides
 
 
+def prepare_dev() -> dict:
+    """Load each UCI dev dataset and print its shape and clinical count, or
+    why it is unavailable. -> name -> (rows, columns) or None."""
+    from pd_fusion_torch.data.dev_datasets.uci_parkinsons import load_uci_parkinsons
+    from pd_fusion_torch.data.dev_datasets.uci_telemonitoring import load_uci_telemonitoring
+
+    shapes = {}
+    for name, loader in (("uci_parkinsons", load_uci_parkinsons),
+                         ("uci_telemonitoring", load_uci_telemonitoring)):
+        try:
+            df, masks = loader()
+        except (OSError, ValueError, KeyError) as e:
+            print(f"{name}: UNAVAILABLE ({e})")
+            shapes[name] = None
+            continue
+        print(f"{name}: OK shape={df.shape} clinical={masks['clinical'].sum()}/{len(df)}")
+        shapes[name] = df.shape
+    return shapes
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description="PPMI Multimodal Fusion CLI (PyTorch/CUDA port)")
     subparsers = parser.add_subparsers(dest="command")
+
+    validate_parser = subparsers.add_parser("validate-data")
+    validate_parser.add_argument("--config", type=str, required=True, help="Data config (sources)")
+    validate_parser.add_argument(
+        "--columns", type=str, default="configs/ppmi_columns.yaml", help="Column mapping config"
+    )
+
+    subparsers.add_parser("prepare-dev")
 
     train_parser = subparsers.add_parser("train")
     train_parser.add_argument("--config", type=str, required=True)
@@ -123,7 +155,7 @@ def main(argv=None):
     args, extra = parser.parse_known_args(argv)
     if args.command in _NOT_PORTED:
         raise NotImplementedError(
-            f"'{args.command}' is not ported to pd_fusion_torch yet ({_NOT_PORTED[args.command]})"
+            f"'{args.command}' is not ported to pd_fusion_torch yet: {_NOT_PORTED[args.command]}"
         )
     if args.command is None:
         parser.print_help()
@@ -135,6 +167,12 @@ def main(argv=None):
         sys.argv[1:] if argv is None else argv
     )
 
+    if args.command == "validate-data":
+        from pd_fusion_torch.data.ppmi_loader import process_and_merge_data
+
+        return process_and_merge_data(load_yaml(Path(args.config)), load_yaml(Path(args.columns)))
+    if args.command == "prepare-dev":
+        return prepare_dev()
     if args.command == "train":
         # the single-split pipeline, as the JAX CLI's train subcommand
         from pd_fusion_torch.experiments.run_experiment import run_full_pipeline

@@ -1,6 +1,7 @@
-"""ResNet2D embedding builders and loaders for OpenNeuro manifests (port
-of ``pd_fusion/data/openneuro_features.py``: cache naming, the mean-pooled
-and per-slice builders, their loaders).
+"""MRI feature and embedding builders and loaders for OpenNeuro manifests
+(port of ``pd_fusion/data/openneuro_features.py``: cache naming, the simple
+3-D statistics, the CNN3D embeddings' loader, the mean-pooled and
+per-slice ResNet2D builders and their loaders).
 
 Artifacts are content-addressed: ``<prefix>_<sha256(manifest)[:12]>_
 <sha256(str(sorted(config.items())))[:12]>``, with the JAX package's
@@ -12,8 +13,13 @@ pretrained. The numeric work is ``imaging/pipeline.py``'s streaming
 pipeline on the card. A random-init backbone uses mean/std 0.5, a
 pretrained one the ImageNet constants.
 
-The simple 3-D statistics and the CNN3D embeddings come with ROADMAP
-Queue 1 item 13.
+The simple 3-D statistics (``features_*.parquet``, ``mri_feat_{k}``
+columns) are built on first load: the native read + resize on the host
+threads, then ``ops/volume_stats.py`` on the card, ``STATS_BATCH``
+volumes a call (the last call takes what is left: a padded batch would
+change no value). The CNN3D embeddings (``embeddings_*.parquet``,
+``mri_cnn_{k}``) are built by ``python -m
+pd_fusion_torch.scripts.build_cnn3d_embeddings`` and only loaded here.
 """
 import hashlib
 import json
@@ -57,6 +63,72 @@ def _id_columns(df: pd.DataFrame) -> Dict[str, np.ndarray]:
         "session": df.get("session", pd.Series([1] * len(df))).to_numpy(),
         "label": df["label"].astype(int).to_numpy(),
     }
+
+
+STATS_BATCH = 8  # volumes per device call of the simple statistics
+
+
+def build_simple_features(manifest_path: Path, cache_dir: Path, config: Dict) -> pd.DataFrame:
+    """Masked statistics, histogram and grid features of every manifest
+    volume -> one row per volume, parquet-cached under the JAX package's
+    name. Runs on the card unless ``PD_FUSION_TORCH_DEVICE`` names another
+    device."""
+    import torch
+
+    from pd_fusion_torch.imaging.pipeline import VolumePrefetcher, make_volume_loader
+    from pd_fusion_torch.ops.volume_stats import simple_volume_features
+    from pd_fusion_torch.utils.device import get_device
+
+    cache_dir = Path(cache_dir)
+    cache_dir.mkdir(parents=True, exist_ok=True)
+    out_path = cache_dir / f"{_cache_stem('features', manifest_path, config)}.parquet"
+    if out_path.exists():
+        return pd.read_parquet(out_path)
+
+    df = _read_manifest(manifest_path)
+    hist_bins = int(config.get("hist_bins", 10))
+    grid_size = int(config.get("grid_size", 8))
+    extra = bool(config.get("extra_stats", False))
+    target = tuple(int(t) for t in config.get("target_shape", (96, 96, 96)))
+    dev = get_device()
+
+    outs, pending = [], []
+
+    def flush():
+        vols = torch.from_numpy(np.stack(pending)).to(dev)
+        outs.append(simple_volume_features(vols, hist_bins, grid_size, extra))
+        pending.clear()
+
+    with torch.inference_mode():
+        loader = make_volume_loader(target)
+        for _, vol in VolumePrefetcher([Path(p) for p in df["t1wbrain_path"]], loader):
+            pending.append(vol)
+            if len(pending) == STATS_BATCH:
+                flush()
+        if pending:
+            flush()
+        mat = torch.cat(outs).cpu().numpy().astype(float)
+
+    out = pd.DataFrame(
+        {**_id_columns(df), **{f"mri_feat_{k}": mat[:, k] for k in range(mat.shape[1])}})
+    out.to_parquet(out_path, index=False)
+    return out
+
+
+# the loader builds on first use, as the JAX package's
+load_simple_features = build_simple_features
+
+
+def load_cnn_embeddings(manifest_path: Path, cache_dir: Path, config: Dict) -> pd.DataFrame:
+    cache_dir = Path(cache_dir)
+    cache_dir.mkdir(parents=True, exist_ok=True)
+    out_path = cache_dir / f"{_cache_stem('embeddings', manifest_path, config)}.parquet"
+    if not out_path.exists():
+        raise FileNotFoundError(
+            f"CNN3D embeddings missing at {out_path}; build them with "
+            "python -m pd_fusion_torch.scripts.build_cnn3d_embeddings"
+        )
+    return pd.read_parquet(out_path)
 
 
 def _resnet_setup(config: Dict):

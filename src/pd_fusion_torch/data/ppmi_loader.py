@@ -10,7 +10,7 @@ of ``pd_fusion/data/ppmi_loader.py``).
   modality, in MODALITIES order), so the frame and masks are
   bit-identical to a JAX run's for the same seed;
 - ``process_and_merge_data``: raw CSV validate / map / outer-merge ->
-  parquet (the ``validate-data`` step, not wired to the port's CLI yet);
+  parquet (the CLI's ``validate-data`` step);
 - ``create_masks_from_df``: presence from marker columns per modality.
 """
 import logging

@@ -14,9 +14,12 @@
   dataset (the ``evaluate`` subcommand) into ``results_eval.yaml``.
 
 Artifact names and YAML structure match the JAX package's. Provenance
-records torch's version and the device instead of JAX's. Datasets:
-``ppmi`` (synthetic or the processed parquet) and ``openneuro_ds001907``;
-the others raise ``NotImplementedError`` (ROADMAP Queue 1 item 14).
+records torch's version and the device instead of JAX's. Datasets, as in
+the JAX package: ``ppmi`` (synthetic or the processed parquet),
+``openneuro_ds001907`` (the prebuilt manifest and its feature modes),
+``uci_parkinsons``, ``uci_telemonitoring``, and ``openneuro_<accession>``,
+``ds004471`` or ``ds004392`` (a BIDS participants table; the dev loaders
+read local files under ``paths.dev_data_dir()``).
 """
 import datetime
 import logging
@@ -65,17 +68,28 @@ def load_dataset(config, data_config, synthetic):
     """Dataset dispatch shared by both pipelines."""
     dataset_name = config.get("dataset", "ppmi")
     logging.getLogger("pd_fusion").info(f"Loading dataset: {dataset_name}")
+    if dataset_name == "uci_parkinsons":
+        from pd_fusion_torch.data.dev_datasets.uci_parkinsons import load_uci_parkinsons
+
+        return dataset_name, *load_uci_parkinsons()
+    if dataset_name == "uci_telemonitoring":
+        from pd_fusion_torch.data.dev_datasets.uci_telemonitoring import load_uci_telemonitoring
+
+        return dataset_name, *load_uci_telemonitoring()
     if dataset_name == "openneuro_ds001907":
         from pd_fusion_torch.data.openneuro_ds001907 import load_openneuro_ds001907
 
         return dataset_name, *load_openneuro_ds001907(data_config)
+    if dataset_name.startswith("openneuro_") or dataset_name in ("ds004471", "ds004392",
+                                                                 "ds001907"):
+        from pd_fusion_torch.data.dev_datasets.openneuro import load_openneuro_dataset
+
+        return dataset_name, *load_openneuro_dataset(dataset_name.replace("openneuro_", ""))
     if dataset_name == "ppmi":
         from pd_fusion_torch.data.ppmi_loader import load_ppmi_data
 
         return dataset_name, *load_ppmi_data(data_config, synthetic=synthetic)
-    raise NotImplementedError(
-        f"dataset '{dataset_name}' is not ported to pd_fusion_torch yet (ROADMAP Queue 1 item 14)"
-    )
+    raise ValueError(f"Unknown dataset: {dataset_name}")
 
 
 def _env_info():

@@ -22,7 +22,8 @@ opens uses the total count); ``torch.optim.Adam`` would skip a parameter
 with no gradient, so the step is written here. A frozen step may pass
 ``None`` for the backbone's gradients (the backward pass stopped at the
 head): that is the zero gradient. The update is functional: new tensors,
-the old ones untouched.
+the old ones untouched. ``adam_update`` alone is also the CNN3D trainer's
+optax ``adam`` (``nn/cnn3d.py``).
 """
 from typing import Dict, List, Optional, Sequence
 
@@ -39,7 +40,7 @@ def init_group(leaves: Sequence[torch.Tensor]) -> Dict:
             "nu": [torch.zeros_like(t) for t in leaves]}
 
 
-def _adam(params: List[torch.Tensor], updates: Optional[List[torch.Tensor]], state: Dict,
+def adam_update(params: List[torch.Tensor], updates: Optional[List[torch.Tensor]], state: Dict,
           lr: float) -> List[torch.Tensor]:
     """optax ``adam``: the moments (in place in ``state``), then ``params -
     lr * mu_hat / (sqrt(nu_hat) + eps)``; ``updates=None`` is a zero update."""
@@ -77,5 +78,5 @@ def ft_update(backbone: List[torch.Tensor], head: List[torch.Tensor],
         g_h = torch._foreach_add(g_h, head, alpha=weight_decay)
         if g_b is not None:
             g_b = torch._foreach_add(g_b, [p * gate for p in backbone], alpha=weight_decay)
-    return (_adam(backbone, g_b, state["backbone"], lr_backbone),
-            _adam(head, g_h, state["head"], lr))
+    return (adam_update(backbone, g_b, state["backbone"], lr_backbone),
+            adam_update(head, g_h, state["head"], lr))

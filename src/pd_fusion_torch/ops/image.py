@@ -57,14 +57,15 @@ def _resize_axis_ac(x: torch.Tensor, axis: int, out_len: int) -> torch.Tensor:
 
 
 def resize3d(vol: torch.Tensor, target_shape: Tuple[int, int, int]) -> torch.Tensor:
-    """Trilinear volume resize with scipy-zoom grid semantics. Integer
-    inputs are promoted to float32 first (a lerp weight cast to an integer
-    type would make it nearest-neighbour)."""
+    """Trilinear volume resize with scipy-zoom grid semantics, over the last
+    three axes ([..., D, H, W]: one volume or a batch). Integer inputs are
+    promoted to float32 first (a lerp weight cast to an integer type would
+    make it nearest-neighbour)."""
     if not vol.is_floating_point():
         vol = vol.to(torch.float32)
     out = vol
     for axis in range(3):
-        out = _resize_axis_ac(out, axis, int(target_shape[axis]))
+        out = _resize_axis_ac(out, vol.ndim - 3 + axis, int(target_shape[axis]))
     return out
 
 
@@ -90,8 +91,9 @@ def resize2d_halfpix(imgs: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
 
 def _masked_percentile(sorted_vals: torch.Tensor, count: torch.Tensor, q: int) -> torch.Tensor:
     """Percentile with numpy 'linear' interpolation over the first ``count``
-    entries of an ascending-sorted array; ``count`` an integer tensor, ``q``
-    an INTEGER percentile. The fractional rank ``(count - 1) * q / 100`` is
+    entries of each ascending-sorted row (``sorted_vals`` [..., N],
+    ``count`` an integer tensor of shape [...]), ``q`` an INTEGER
+    percentile. The fractional rank ``(count - 1) * q / 100`` is
     taken in exact integers, split as the JAX function splits it to stay
     inside int32 (a float32 rank has an ulp of 0.5 and more at 2^24 voxels
     and picked off-by-one indices against ``np.percentile``). The integer
@@ -104,9 +106,20 @@ def _masked_percentile(sorted_vals: torch.Tensor, count: torch.Tensor, q: int) -
     rq = r * q
     lo = a * q + rq // 100
     rem = rq - (rq // 100) * 100
-    t = rem.to(sorted_vals.dtype) / 100.0
+    t = rem.to(sorted_vals.dtype) * 0.01  # XLA's rewrite of the JAX function's / 100.0
     hi = torch.where(rem > 0, lo + 1, lo)
-    return sorted_vals[lo] * (1.0 - t) + sorted_vals[hi] * t
+
+    def at(i):
+        return torch.take_along_dim(sorted_vals, i[..., None].long(), dim=-1)[..., 0]
+
+    below, above = at(lo), at(hi)
+    if sorted_vals.dtype != torch.float32:
+        return below * (1.0 - t) + above * t
+    # XLA's CPU backend contracts the JAX function's a * (1 - t) + b * t into
+    # fma(b, t, a * (1 - t)). b * t of two float32s is exact in float64, so
+    # one rounding of the float64 sum gives the fma's float32 (a double
+    # rounding could differ only on an exact halfway case), on any device.
+    return ((below * (1.0 - t)).double() + above.double() * t.double()).float()
 
 
 def percentile_normalize(vol: torch.Tensor) -> torch.Tensor:

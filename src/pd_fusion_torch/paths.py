@@ -14,13 +14,19 @@ SRC_DIR = ROOT_DIR / "src" / "pd_fusion_torch"
 DATA_DIR = ROOT_DIR / "data"
 RAW_DATA_DIR = DATA_DIR / "raw"
 PROCESSED_DATA_DIR = DATA_DIR / "processed"
-# Dev datasets (UCI / OpenNeuro downloads) may live outside the repo.
-DEV_DATA_DIR = Path(os.environ.get("PD_FUSION_DEV_DATA_DIR") or DATA_DIR / "raw_dev")
+DEV_DATA_ENV = "PD_FUSION_DEV_DATA_DIR"
 
 RUNS_DIR = ROOT_DIR / "runs"
 CONFIGS_DIR = ROOT_DIR / "configs"
 BUILD_DIR = ROOT_DIR / "build" / "kernels"
 HOST_BUILD_DIR = ROOT_DIR / "build" / "host"
+
+
+def dev_data_dir() -> Path:
+    """Root of the dev datasets (UCI / OpenNeuro downloads), which may live
+    outside the repo: ``PD_FUSION_DEV_DATA_DIR`` as set at the call, else
+    ``data/raw_dev``."""
+    return Path(os.environ.get(DEV_DATA_ENV) or DATA_DIR / "raw_dev")
 
 
 def get_run_dir(run_id: str) -> Path:

@@ -16,8 +16,10 @@ fold batching, card against CPU with the split-optimality audit,
 TreeSHAP), ``pd_fusion_torch/imaging/embed_checks.py`` (the ResNet
 backbones and the embed pipeline, card against CPU) and
 ``pd_fusion_torch/models/ft_checks.py`` (one MIL fine-tune step at full
-width, frozen and not, card against CPU), which ``chip_smoke.py`` runs
-too.
+width, frozen and not, card against CPU),
+``pd_fusion_torch/ops/volume_stats_checks.py`` (the simple 3-D statistics,
+card against CPU) and ``pd_fusion_torch/nn/cnn3d_checks.py`` (one CNN3D
+training step, card against CPU), which ``chip_smoke.py`` runs too.
 """
 import pytest
 import torch
@@ -168,3 +170,32 @@ def test_mil_finetune_step_on_the_card_matches_the_cpu(cuda):
     errs = ft_checks.compare_card_with_cpu(cuda)
     assert set(errs) == {"gate0", "gate1"}
     assert ap.launch_counts["kernel"] == before + 2
+
+
+def test_simple_volume_features_on_the_card_match_the_cpu(cuda):
+    """A batch of 8 at the feature config's width (96^3, 10 bins, grid 8),
+    ``extra_stats`` off and on (``ops/volume_stats_checks.py``: order
+    statistics and histogram equal)."""
+    import numpy as np
+
+    from pd_fusion_torch.ops import volume_stats_checks
+
+    rng = np.random.default_rng(0)
+    vols = (rng.random((8, 96, 96, 96), dtype=np.float32) * 900.0).astype(np.float32)
+    vols[:, :12] = 0.0  # background outside the mask
+    vols[3] = 0.0  # an empty mask uses every voxel
+    vols[5] = 250.0  # a degenerate range
+    errs = volume_stats_checks.compare_card_with_cpu(vols, cuda)
+    assert set(errs) == {"extra_off", "extra_on"}
+
+
+def test_cnn3d_step_on_the_card_matches_the_cpu(cuda):
+    """One Adam step at the data config's cnn_config (64^3, embedding 64,
+    batch 8; ``nn/cnn3d_checks.py``'s tolerances), from one init and batch."""
+    from pd_fusion_torch.nn import cnn3d_checks
+    from pd_fusion_torch.utils.device import get_device
+
+    get_device(cuda)  # TF32 off
+    vols = cnn3d_checks.synthetic_volumes(10, cnn3d_checks.CNN_CONFIG["target_shape"])
+    errs = cnn3d_checks.compare_card_with_cpu(vols, cuda)
+    assert errs["loss_rel"] <= cnn3d_checks.LOSS_RTOL

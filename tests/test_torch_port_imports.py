@@ -33,6 +33,12 @@ EMBED_MODULES = ("imaging.nifti", "imaging.native", "imaging.pipeline", "imaging
 # the MIL fine-tune slice
 FT_MODULES = ("models.mil_attention_finetune", "models.ft_checks", "nn.ft_optim",
               "training.callbacks", "utils.checkpoint", "utils.profiling")
+# the ds001907 volume-feature path and the dev datasets
+VOLUME_MODULES = ("ops.volume_stats", "ops.volume_stats_checks", "nn.cnn3d", "nn.cnn3d_checks",
+                  "scripts.build_cnn3d_embeddings", "data.dev_datasets",
+                  "data.dev_datasets.uci_parkinsons", "data.dev_datasets.uci_telemonitoring",
+                  "data.dev_datasets.openneuro", "features", "features.clinical",
+                  "features.datspect", "features.mri")
 
 
 def test_port_imports_without_jax_or_jax_package():
@@ -43,9 +49,10 @@ def test_port_imports_without_jax_or_jax_package():
     ).stdout.strip()
     count, rest = out.split(maxsplit=1)
     bad, names = rest.split("] ", 1)
-    assert int(count) >= 43  # every module of the port was imported
+    assert int(count) >= 56  # every module of the port was imported
     assert bad + "]" == "[]"
-    assert ({f"pd_fusion_torch.{m}" for m in SLICE_MODULES + EMBED_MODULES + FT_MODULES}
+    assert ({f"pd_fusion_torch.{m}"
+             for m in SLICE_MODULES + EMBED_MODULES + FT_MODULES + VOLUME_MODULES}
             <= set(names.split()))
 
 

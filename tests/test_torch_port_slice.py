@@ -332,12 +332,14 @@ def test_cli_reads_cv_folds_from_config_as_given(monkeypatch, tmp_path):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    """``download-dev`` is the one subcommand still refused. The cnn3d
+    feature mode (configs/data_openneuro_ds001907.yaml) and the UCI dev
+    dataset run now, and without their files they say which to make."""
     from pd_fusion_torch import cli
     from pd_fusion_torch.paths import ROOT_DIR
 
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14"):
-        cli.main(["validate-data", "--config", "configs/data_ppmi.yaml"])
-    # the cnn3d feature mode of ds001907 (configs/data_openneuro_ds001907.yaml)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14c"):
+        cli.main(["download-dev"])
     manifest = tmp_path / "manifest.csv"
     manifest.write_text("subject_id,session,label,t1wbrain_path\n")
     monkeypatch.setenv("PD_FUSION_DS001907_MANIFEST", str(manifest))
@@ -345,7 +347,10 @@ def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
     cfg["data_config"] = str(ROOT_DIR / "configs/data_openneuro_ds001907.yaml")
     config = tmp_path / "cnn3d.yaml"
     config.write_text(yaml.safe_dump(cfg))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
+    monkeypatch.chdir(tmp_path)  # the data config's relative cache dir lands here
+    with pytest.raises(FileNotFoundError, match="scripts.build_cnn3d_embeddings"):
         cli.main(["run", "--config", str(config), "--output-dir", str(tmp_path / "run")])
-    with pytest.raises(NotImplementedError, match="item 14"):
-        cli.main(["run", "--config", MIL_CONFIG, "--dataset", "uci_parkinsons"])
+    monkeypatch.setenv("PD_FUSION_DEV_DATA_DIR", str(tmp_path / "no_dev_data"))
+    with pytest.raises(FileNotFoundError, match="UCI Parkinsons data not found"):
+        cli.main(["run", "--config", str(ROOT_DIR / MIL_CONFIG), "--dataset", "uci_parkinsons",
+                  "--output-dir", str(tmp_path / "uci")])

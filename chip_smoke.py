@@ -160,7 +160,27 @@ Phases; any failure exits non-zero before the final line:
 27. ``run --config configs/quickstart.yaml --dataset uci_parkinsons --k-fold
    5`` on a seeded fixture file with UCI's columns, written under a
    temporary ``PD_FUSION_DEV_DATA_DIR`` (nothing fetched);
-28. a JSON line with each device program's host and device time and
+28. ``download-dev`` through the port's CLI in this process, with no
+   ``openneuro`` CLI on PATH and ``urlopen`` refusing, on a base directory
+   where the UCI files exist: it returns, nothing fetched, the manual
+   instructions printed, K1 counted 0;
+29. the PPMI suites' device programs on the card against the CPU
+   (``pd_fusion_torch/analysis/tabular_checks.py``, shared with the
+   ``cuda`` tests): the balanced logistic fit, the batched AUC screen, the
+   permutation probes, ``TabularPrep`` against the sweep's transformer, and
+   the GBDT arm's fold-batched fit against each model's own fit;
+30. the PPMI study-data path on seeded synthetic study CSVs of 1,500 PD and
+   HC subjects (plus 200 SWEDD and prodromal the label map drops) at the
+   widths of PPMI's tables: ``python -m
+   pd_fusion_torch.scripts.ppmi_build_dataset`` with
+   ``configs/ppmi_studydata.yaml`` (data directories redirected, every other
+   setting the config's), ``ppmi_train_tabular`` (5 seeds x 6 ablations x
+   {logreg, lgbm, mlp}), ``ppmi_eval_report`` and ``ppmi_meaningful_suite``
+   on the built baseline table, each through its ``main``: every artifact,
+   finite metrics, each stage's wall time, K1 launched neither as kernel
+   nor plain; then the suites' device programs at the widest ablation,
+   profiled and between CUDA events, beside their bounds;
+31. a JSON line with each device program's host and device time and
    launches a step; one with each path's wall time, busy share and AUC;
    one with each kernel's launches (by path), error and times (B=16 and
    B=80, and the launch floor); the card line again; then ``{"ok": true,
@@ -2035,6 +2055,366 @@ def run_volume_path(torch, np, yaml, ap, cli, tmp: Path, manifest: Path):
     return paths, programs, launches
 
 
+# ---------------------------------------------------------------------------
+# download-dev and the PPMI study-data path (phases 28-30)
+# ---------------------------------------------------------------------------
+
+STUDY_CONFIG = ROOT / "configs" / "ppmi_studydata.yaml"
+STUDY_SUBJECTS = 1500  # PD and HC subjects of the synthetic study data (plus 200 excluded)
+# the sweep's seeds: the config's five, unless a cut is recorded here (depth
+# only: every ablation, model and width stays the config's)
+STUDY_SEEDS = None
+
+
+def run_download_dev(ap, cli, tmp: Path):
+    """Phase 28: ``download-dev`` through the port's CLI, in this process
+    with a PATH that holds no ``openneuro`` CLI and ``urlopen`` refusing,
+    on a base directory where the UCI files exist: it must return, fetch
+    and change nothing and print the manual instructions. K1's counts are
+    zeroed just before and read just after. -> (path record, K1 counts)."""
+    import contextlib
+    import io
+    import os
+    import urllib.request
+    from unittest import mock
+
+    from pd_fusion_torch.data.download.uci_download import UCI_SOURCES
+
+    base, empty = tmp / "raw_dev", tmp / "empty_bin"
+    (base / "uci").mkdir(parents=True)
+    empty.mkdir()
+    for name in UCI_SOURCES:
+        (base / "uci" / name).write_text("cached")
+
+    def refuse(url, *a, **kw):
+        raise RuntimeError(f"download-dev tried to fetch {url}")
+
+    out = io.StringIO()
+    ap.reset_launch_counts()
+    t0 = time.perf_counter()
+    with mock.patch.dict(os.environ, PATH=str(empty)), \
+            mock.patch.object(urllib.request, "urlopen", refuse), contextlib.redirect_stdout(out):
+        cli.main(["download-dev", "--out", str(base)])
+    wall = time.perf_counter() - t0
+    launches = dict(ap.launch_counts)
+    printed = out.getvalue()
+    if launches != {"kernel": 0, "plain": 0}:
+        raise RuntimeError(f"download-dev launched K1: {launches}")
+    if "MANUAL DOWNLOAD REQUIRED" not in printed or "BioFIND" not in printed:
+        raise RuntimeError(f"download-dev printed no manual instructions:\n{printed}")
+    changed = [n for n in UCI_SOURCES if (base / "uci" / n).read_text() != "cached"]
+    if changed or (base / "openneuro").exists():
+        raise RuntimeError(f"download-dev fetched something: {changed or 'openneuro/'}")
+    print(f"download-dev (pd_fusion_torch.cli.main(['download-dev', '--out', <base>]), UCI "
+          f"files present, no openneuro CLI on PATH): returned in {wall:.3f} s, nothing "
+          f"fetched, manual instructions printed ({len(printed.splitlines())} lines), K1 "
+          f"{launches}")
+    return {"name": "download_dev", "wall_s": wall}, launches
+
+
+def run_tabular_checks(torch) -> dict:
+    """Phase 29: the suites' device programs on the card against the CPU
+    (``analysis/tabular_checks.py``, shared with the ``cuda`` tests)."""
+    from pd_fusion_torch.analysis import tabular_checks as tc
+
+    errs = {"logreg_coef_rel": tc.check_logreg("cuda"),
+            "auc_screen_abs": tc.check_auc_screen("cuda"),
+            "permutation_auc_abs": tc.check_permutation_screen("cuda"),
+            "tabular_prep_abs": tc.check_tabular_prep()}
+    print(f"balanced logistic fit {tc.LOGREG_SHAPE} card vs CPU: coefficients "
+          f"{errs['logreg_coef_rel']:.3e} of the largest (tolerance {tc.LOGREG_RTOL})")
+    print(f"AUC screen {tc.AUC_SHAPE} card vs CPU: max abs err {errs['auc_screen_abs']:.3e} "
+          f"(tolerance {tc.AUC_ATOL})")
+    print(f"permutation screen {tc.PERM_SHAPE}, 5 repeats x 80 epochs, card vs CPU: AUCs "
+          f"{errs['permutation_auc_abs']:.3e} apart (tolerance {tc.PERM_AUC_ATOL})")
+    print(f"TabularPrep vs the sweep transformer's numeric block: {errs['tabular_prep_abs']:.3e} "
+          f"(tolerance {tc.PREP_ATOL})")
+    t0 = time.perf_counter()
+    stack = tc.check_gbdt_stack("cuda", **tc.GBDT_STACK)
+    print(f"GBDT fold-batched fit vs each model's own fit on the card ({tc.GBDT_STACK}, the "
+          f"suites' settings): bitwise {stack['bitwise']}, first forked round "
+          f"{stack['first_fork']} ({time.perf_counter() - t0:.2f} s)")
+    return {**errs, "gbdt_stack_bitwise": stack["bitwise"],
+            "gbdt_stack_first_fork": stack["first_fork"]}
+
+
+def _finite(frame, what):
+    """Every numeric cell of ``frame`` is finite, and it has rows."""
+    num = frame.select_dtypes("number")
+    bad = [c for c in num.columns if not num[c].map(math.isfinite).all()]
+    if frame.empty or bad:
+        raise RuntimeError(f"{what}: {'no rows' if frame.empty else f'non-finite {bad}'}")
+
+
+def study_programs(torch, np, cfg, processed: Path, seeds) -> dict:
+    """The suites' device programs at the sweep's widest ablation
+    (full_fusion) on seed ``seeds[0]``'s split, each as the suite calls it:
+    host time unprofiled, device time and launches under the profiler,
+    and the median between two CUDA events."""
+    import pandas as pd
+
+    from pd_fusion_torch.analysis.column_transformer import SuiteColumnTransformer
+    from pd_fusion_torch.analysis.tabular import (
+        SUITE_GBDT,
+        numeric_feature_columns,
+        permutation_inputs,
+    )
+    from pd_fusion_torch.nn.gbdt import MISSING_BIN, N_VALUE_BINS, DeviceHistGBDT, train_gbdt
+    from pd_fusion_torch.nn.logreg import BalancedLogisticRegression
+    from pd_fusion_torch.nn.trainer import fullbatch_impl
+    from pd_fusion_torch.ops.metrics import roc_auc
+    from pd_fusion_torch.scripts import ppmi_meaningful_suite as ms
+    from pd_fusion_torch.scripts import ppmi_train_tabular as tt
+
+    df = pd.read_csv(processed / "ppmi_subject_baseline.csv", low_memory=False)
+    df["subject_id"] = df["subject_id"].astype(str)
+    schema = json.loads((processed / "ppmi_feature_schema.json").read_text())
+    groups = next(a for a in cfg["ablations"] if a["name"] == "full_fusion")["groups"]
+    cols = [c for g in groups for c in schema["groups"][g]["features"]]
+    num = [c for c in cols if pd.api.types.is_numeric_dtype(df[c])]
+    parts = []
+    for seed in seeds:
+        ids = json.loads((processed / f"ppmi_splits_seed{seed}.json").read_text())
+        tr, va, te = (df[df["subject_id"].isin(ids[k])] for k in ("train", "val", "test"))
+        pre = SuiteColumnTransformer(True, num, [c for c in cols if c not in num])
+        parts.append((pre.fit_transform(tr[cols]), tr["label"].to_numpy(),
+                      pre.transform(va[cols]), va["label"].to_numpy()))
+    X, y, Xv, yv = parts[0]
+    n, d = X.shape
+    programs = {}
+
+    def record(name, fn, steps, bound_ms, bound_by, calls=1):
+        rec = with_event_time(torch, program_profile(torch, fn, steps=steps, calls=calls), fn,
+                              reps=3)
+        rec.update(bound_ms_per_call=bound_ms, bound_by=bound_by)
+        print_program(name, rec)
+        print(f"    bound {bound_ms:.6f} ms a call by {bound_by}")
+        programs[name] = rec
+
+    # the univariate screen over every numeric column of the baseline table
+    screen_cols = numeric_feature_columns(df, ms.GLOBAL_EXCLUDE_REGEX, ms.ID_COLS)
+    mat = df[screen_cols].apply(pd.to_numeric, errors="coerce")
+    mat = mat.fillna(mat.median()).to_numpy(np.float32)
+    cols_dev = torch.as_tensor(np.ascontiguousarray(mat.T), device=DEV)
+    lab_dev = torch.as_tensor(df["label"].to_numpy(np.float32), device=DEV)
+    n_bytes = (mat.size + 2 * mat.shape[0] + mat.shape[1]) * 4
+    record(f"auc_screen_F{mat.shape[1]}_N{mat.shape[0]}", lambda: roc_auc(lab_dev, cols_dev),
+           1, n_bytes / H100_BYTES_PER_S * 1e3, "bytes")
+
+    # the permutation probes: 5 repeats x 80 full-batch steps on the stacked axis
+    Xtr, ytr, wtr, Xte, yte = (torch.as_tensor(a, device=DEV) for a in permutation_inputs(
+        df, screen_cols, 5, 42))
+    R, n_tr, dp = Xtr.shape
+
+    def probes():
+        probe = [{"w": torch.zeros((R, dp, 1), device=DEV), "b": torch.zeros((R, 1), device=DEV)}]
+        fit = fullbatch_impl(probe, Xtr, ytr, wtr, None, 0.05, 80, 0.0, 0.0)
+        return roc_auc(yte, torch.bmm(Xte, fit[0]["w"])[..., 0] + fit[0]["b"])
+
+    flops = 80 * 6 * R * n_tr * dp + 2 * R * Xte.shape[1] * dp
+    n_bytes = sum(t.numel() for t in (Xtr, ytr, wtr, Xte, yte)) * 4
+    record(f"permutation_probes_R{R}_n{n_tr}_d{dp}", probes, 80,
+           max(flops / H100_F32_FLOPS, n_bytes / H100_BYTES_PER_S) * 1e3,
+           "operations" if flops / H100_F32_FLOPS > n_bytes / H100_BYTES_PER_S else "bytes")
+
+    # the balanced logistic fit (float64 Newton); bound by its bytes (the
+    # float64 peak is not in the measurement table)
+    steps = BalancedLogisticRegression(max_iter=1000).fit(X, y).n_iter_[0]
+    record(f"logreg_fit_n{n}_d{d}", lambda: BalancedLogisticRegression(max_iter=1000).fit(X, y),
+           int(steps), (n * (d + 3)) * 8 / H100_BYTES_PER_S * 1e3, "bytes")
+
+    # the early-stopped MLP of the sweep's config
+    mcfg = cfg["mlp"]
+    h = [d, *mcfg["hidden_dims"], 1]
+    per_epoch = sum(6 * n * a * b + 2 * len(yv) * a * b for a, b in zip(h[:-1], h[1:]))
+    record(f"mlp_earlystop_n{n}_d{d}", lambda: tt.train_mlp(X, y, Xv, yv, 42, mcfg)(Xv), 1,
+           per_epoch * int(mcfg["max_epochs"]) / H100_F32_FLOPS * 1e3, "operations (all epochs)")
+
+    # the GBDT arm's device program: the seeds' ensembles as one
+    # fold-batched train_gbdt call (binned as fit_gbdt_stack bins them), a
+    # few of its 300 rounds
+    rounds = 20
+    proto = DeviceHistGBDT(**SUITE_GBDT)
+    prepared = [proto._fit_inputs(p[0], p[1]) for p in parts]
+    K, n_max = len(prepared), max(len(p[2]) for p in prepared)
+    f_max = max(p[1].shape[1] for p in prepared)
+    bins = np.full((K, n_max, f_max), MISSING_BIN, np.int32)
+    yk, wk = np.zeros((K, n_max), np.float32), np.zeros((K, n_max), np.float32)
+    for k, (_, b, yy, ww, _) in enumerate(prepared):
+        bins[k, : b.shape[0], : b.shape[1]], yk[k, : len(yy)], wk[k, : len(yy)] = b, yy, ww
+    t = lambda a: torch.as_tensor(a, device=DEV)  # noqa: E731
+    args = (t(bins), t(yk), t(wk), t(np.array([p[4] for p in prepared], np.float32)))
+    hp = dict(proto.hparams(), n_rounds=rounds)
+    # what a round needs, level by level: the bins and the (g, h, w) rows
+    # read once, three adds per row and feature into the histograms, and
+    # the split scan (cumsum and two gain arms, about 33 operations per
+    # node, feature and threshold); the onehot lowering's own products are
+    # reported apart, as its throughput
+    depth, per_bin = hp["depth"], 3 + 2 * 15
+    n_bytes = depth * (bins.size * bins.itemsize + 3 * K * n_max * 4)
+    ops = sum(3 * K * n_max * f_max + per_bin * K * (1 << lv) * f_max * N_VALUE_BINS
+              for lv in range(depth))
+    t_bytes, t_ops = n_bytes / H100_BYTES_PER_S * 1e3, ops / H100_F32_FLOPS * 1e3
+    bound = (max(t_bytes, t_ops) * rounds, "bytes" if t_bytes >= t_ops else "operations")
+    name = f"gbdt_round_K{K}_n{n_max}_f{f_max}"
+    record(name, lambda: train_gbdt(*args, **hp), rounds, *bound)
+    onehot_flops = 2 * f_max * 256 * n_max * 3 * ((1 << depth) - 1) * K
+    rec = programs[name]
+    rec["onehot_lowering_tflops"] = onehot_flops / (rec["device_us_per_step"] / 1e6) / 1e12
+    print(f"    the onehot lowering's products: {onehot_flops / 1e9:.3f} GFLOP a round, "
+          f"{rec['onehot_lowering_tflops']:.3f} TFLOP/s over the round's device time")
+    # the same rounds with each fold's sigmoid taken over its own rows, as
+    # fit_gbdt_stack does on the CPU only (2K more launches a round)
+    per_fold = lambda: train_gbdt(*args, n_rows=[len(p[2]) for p in prepared], **hp)  # noqa
+    record(f"{name}_per_fold_sigmoid", per_fold, rounds, *bound)
+    host = {"shared": [], "per_fold": []}
+    for _ in range(3):  # in turns, synchronised at both ends
+        for key, fn in (("shared", lambda: train_gbdt(*args, **hp)), ("per_fold", per_fold)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            host[key].append((time.perf_counter() - t0) * 1e3 / rounds)
+    med = {k: sorted(v)[1] for k, v in host.items()}
+    rec["host_ms_per_round_in_turns"] = med["shared"]
+    programs[f"{name}_per_fold_sigmoid"]["host_ms_per_round_in_turns"] = med["per_fold"]
+    print(f"    a round's host time, 3 calls of {rounds} rounds each in turns (median): one "
+          f"sigmoid {med['shared']:.3f} ms, per-fold sigmoids {med['per_fold']:.3f} ms")
+    return programs
+
+
+def run_study_path(torch, np, yaml, ap, tmp: Path):
+    """Phase 30: the PPMI study-data path at the config's settings on
+    seeded synthetic study CSVs of ``STUDY_SUBJECTS`` subjects: build,
+    the sweep (seeds x ablations x {logreg, lgbm, mlp}), the report and the
+    meaningful suite, each through its script's ``main``; every artifact
+    and finite metrics; K1 launched neither as kernel nor plain; then the
+    suites' device programs. -> (paths, programs, K1 launches by path)."""
+    from pd_fusion_torch.analysis import tabular_checks as tc
+    from pd_fusion_torch.scripts import ppmi_build_dataset as build
+    from pd_fusion_torch.scripts import ppmi_eval_report as report
+    from pd_fusion_torch.scripts import ppmi_meaningful_suite as ms
+    from pd_fusion_torch.scripts import ppmi_train_tabular as tt
+
+    t_phase = time.perf_counter()
+    study, processed = tmp / "ppmi" / "raw" / "study_data", tmp / "ppmi" / "processed"
+    t0 = time.perf_counter()
+    counts = tc.write_synthetic_study_data(study, STUDY_SUBJECTS)
+    write_s = time.perf_counter() - t0
+    cfg = tc.study_config(study, processed, STUDY_CONFIG)
+    seeds = cfg["splits"]["seeds"]
+    if STUDY_SEEDS is not None:
+        print(f"depth cut: the sweep's seeds {seeds} -> {seeds[:STUDY_SEEDS]}")
+        cfg["splits"]["seeds"] = seeds = seeds[:STUDY_SEEDS]
+    cfg_path = tmp / "ppmi_studydata.yaml"
+    cfg_path.write_text(yaml.safe_dump(cfg, sort_keys=False))
+    paths, launches = [], {}
+
+    ap.reset_launch_counts()
+    t0 = time.perf_counter()
+    build.main(["--config", str(cfg_path)])
+    build_s = time.perf_counter() - t0
+    require_files(processed, ["ppmi_subject_baseline.csv", "ppmi_visit_level.csv",
+                              "ppmi_feature_schema.json", "ppmi_manifest.md",
+                              "ppmi_build_dataset.log"]
+                  + [f"ppmi_splits_seed{s}.json" for s in seeds], "ppmi_build_dataset")
+    import pandas as pd
+
+    base = pd.read_csv(processed / "ppmi_subject_baseline.csv", low_memory=False)
+    got = base["label"].value_counts().to_dict()
+    if got != {1: counts["n_pd"], 0: counts["n_hc"]}:
+        raise RuntimeError(f"baseline labels {got}, wrote {counts}")
+    schema = json.loads((processed / "ppmi_feature_schema.json").read_text())
+    widths = {g: len(v["features"]) for g, v in schema["groups"].items()}
+    print(f"ppmi_build_dataset: {len(base)} subjects ({counts['n_pd']} PD, {counts['n_hc']} HC; "
+          f"{counts['n_excluded']} SWEDD/prodromal excluded), {schema['n_visits']} visits, feature "
+          f"groups {widths}; CSVs written in {write_s:.3f} s, build {build_s:.3f} s")
+    launches["ppmi_build_dataset"] = dict(ap.launch_counts)
+    paths.append({"name": "ppmi_build_dataset", "wall_s": build_s, "subjects": len(base),
+                  "visits": schema["n_visits"], "widths": widths})
+
+    run = tmp / "ppmi" / "tabular_run"
+    ap.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = tt.main(["--config", str(cfg_path), "--out_dir", str(run)])
+    train_s = time.perf_counter() - t0
+    n_fits = len(seeds) * len(cfg["ablations"]) * len(cfg["models"])
+    require_files(run, ["config_resolved.yaml", "results_all.csv", "summary_sweep_mean.csv",
+                        "ppmi_train_tabular.log"]
+                  + [f"pred_{m}_{a['name']}_seed{s}.csv" for s in seeds for a in cfg["ablations"]
+                     for m in cfg["models"]], "ppmi_train_tabular")
+    on_disk = pd.read_csv(run / "results_all.csv")
+    _finite(on_disk, "results_all.csv")
+    if len(on_disk) != n_fits or len(results) != n_fits:
+        raise RuntimeError(f"results_all.csv has {len(on_disk)} rows, expected {n_fits}")
+    timing = dict(tt.LAST_TIMINGS)
+    print(f"ppmi_train_tabular ({len(seeds)} seeds x {len(cfg['ablations'])} ablations x "
+          f"{cfg['models']}, MLP {cfg['mlp']['hidden_dims']}, {cfg['mlp']['max_epochs']} epochs, "
+          f"patience {cfg['mlp']['patience']}): wall {train_s:.3f} s; "
+          + ", ".join(f"{k} {v:.3f}" for k, v in timing.items()))
+    for (model, abl), g in on_disk.groupby(["model", "ablation"]):
+        print(f"  {model:6s} {abl:16s} roc_auc {g['roc_auc'].mean():.4f} +- "
+              f"{g['roc_auc'].std():.4f}")
+    launches["ppmi_train_tabular"] = dict(ap.launch_counts)
+    paths.append({"name": "ppmi_train_tabular", "wall_s": train_s, "fits": n_fits,
+                  "stages_s": timing, "seeds": len(seeds),
+                  "auc_full_fusion": {m: float(on_disk[(on_disk.model == m) & (
+                      on_disk.ablation == "full_fusion")]["roc_auc"].mean())
+                      for m in cfg["models"]}})
+
+    ap.reset_launch_counts()
+    t0 = time.perf_counter()
+    report.main(["--config", str(cfg_path), "--out_dir", str(run)])
+    report_s = time.perf_counter() - t0
+    require_files(run, ["ranking_table.csv", "ppmi_eval_report.log"], "ppmi_eval_report")
+    ranking = pd.read_csv(run / "ranking_table.csv")
+    _finite(ranking[["roc_auc_mean", "roc_auc_std"]], "ranking_table.csv")
+    top = ranking.iloc[0]
+    print(f"ppmi_eval_report: wall {report_s:.3f} s; top {top['model']}/{top['ablation']} "
+          f"roc_auc_mean {top['roc_auc_mean']:.4f}")
+    launches["ppmi_eval_report"] = dict(ap.launch_counts)
+    paths.append({"name": "ppmi_eval_report", "wall_s": report_s})
+
+    suite = tmp / "ppmi" / "meaningful"
+    ap.reset_launch_counts()
+    t0 = time.perf_counter()
+    per_fold = ms.main(["--input-csv", str(processed / "ppmi_subject_baseline.csv"),
+                        "--output-dir", str(suite)])
+    suite_s = time.perf_counter() - t0
+    require_files(suite, ["kept_dropped_columns.json", "per_fold_metrics.csv",
+                          "summary_mean.csv", "feature_importance.csv", "univariate_top.csv",
+                          "permutation_test.csv", "ppmi_meaningful_suite.log"]
+                  + (["roc_auc_bar.png"] if importlib.util.find_spec("matplotlib") else []),
+                  "ppmi_meaningful_suite")
+    _finite(pd.read_csv(suite / "per_fold_metrics.csv"), "per_fold_metrics.csv")
+    perm = pd.read_csv(suite / "permutation_test.csv")
+    _finite(perm, "permutation_test.csv")
+    settings = per_fold["setting"].nunique()
+    if len(per_fold) != settings * 2 * 5 or settings != len(ms.SETTINGS):
+        raise RuntimeError(f"per_fold_metrics.csv: {len(per_fold)} rows over {settings} settings")
+    timing = dict(ms.LAST_TIMINGS)
+    print(f"ppmi_meaningful_suite (6 settings x {{logreg, lgbm}} x 5 folds, univariate and "
+          f"permutation screens): wall {suite_s:.3f} s; "
+          + ", ".join(f"{k} {v:.3f}" for k, v in timing.items()))
+    summary = pd.read_csv(suite / "summary_mean.csv")
+    for _, row in summary.iterrows():
+        print(f"  {row['model']:6s} {row['setting']:24s} roc_auc {row['roc_auc_mean']:.4f} +- "
+              f"{row['roc_auc_std']:.4f}")
+    print(f"  permutation screen AUC mean {perm['roc_auc'].mean():.4f} (labels shuffled)")
+    launches["ppmi_meaningful_suite"] = dict(ap.launch_counts)
+    paths.append({"name": "ppmi_meaningful_suite", "wall_s": suite_s, "stages_s": timing,
+                  "permutation_auc_mean": float(perm["roc_auc"].mean())})
+    for name, k1 in launches.items():
+        if k1 != {"kernel": 0, "plain": 0}:
+            raise RuntimeError(f"{name} launched K1: {k1}")
+    if "sklearn" in sys.modules:
+        raise RuntimeError("the study-data path imported scikit-learn")
+    print(f"phase 30 paths: {time.perf_counter() - t_phase:.3f} s")
+
+    programs = study_programs(torch, np, cfg, processed, seeds)
+    return paths, programs, launches
+
+
 def _tensors(tree, prefix=""):
     if isinstance(tree, dict):
         for k, v in tree.items():
@@ -2262,7 +2642,24 @@ def main() -> int:
     paths += embed_paths + ft_paths + vol_paths
     programs.update(embed_programs, **ft_programs, **vol_programs)
 
-    # phase 28: the record (times at the training step's shape, and at B=80)
+    # phases 28-30: download-dev; the suites' device programs card vs CPU;
+    # the PPMI study-data path
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ppmi_"))
+    try:
+        t_new = time.perf_counter()
+        dl_path, dl_launches = run_download_dev(ap, cli, tmp)
+        paths.append(dl_path)
+        checks_rec = run_tabular_checks(torch)
+        study_paths, study_progs, study_launches = run_study_path(torch, np, yaml, ap, tmp)
+        print(f"phases 28-30: {time.perf_counter() - t_new:.3f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    paths += study_paths
+    paths.append({"name": "ppmi_card_vs_cpu_checks", **checks_rec})
+    programs.update(study_progs)
+    vol_launches.update(study_launches, download_dev=dl_launches)
+
+    # phase 31: the record (times at the training step's shape, and at B=80)
     print(json.dumps({"programs": [
         {"name": name, **{k: v for k, v in rec.items() if k != "prof"}}
         for name, rec in programs.items()]}))

@@ -6,6 +6,8 @@
     python -m pd_fusion_torch.cli evaluate --config <eval config> --run-dir <run>
     python -m pd_fusion_torch.cli validate-data --config <data config> [--columns C]
     python -m pd_fusion_torch.cli prepare-dev
+    python -m pd_fusion_torch.cli download-dev [--dataset all|uci|openneuro|manual]
+        [--out D] [--openneuro-metadata-only]
 
 ``run`` has the JAX package's flags and semantics: ``--k-fold`` or a
 ``cv_folds``/``k_folds`` key in the config selects the CV pipeline, else
@@ -18,10 +20,11 @@ runs the single-split pipeline; ``evaluate`` re-evaluates a finished run
 into ``results_eval.yaml``. ``validate-data`` maps and merges the raw PPMI
 CSVs a data config names into the processed parquet; ``prepare-dev`` loads
 each UCI dev dataset under ``paths.dev_data_dir()`` and prints its shape or
-why it is unavailable. The invocation string is exported as
-PD_FUSION_COMMAND for provenance. ``download-dev`` raises
-``NotImplementedError``: it fetches the dev datasets from outside the
-repository, and a later slice ports it.
+why it is unavailable. ``download-dev`` fetches the UCI files and the
+OpenNeuro accessions that are not on disk yet (``data/download/*``; the
+OpenNeuro part only where its CLI is installed) and prints how to obtain
+the access-controlled datasets. The invocation string is exported as
+PD_FUSION_COMMAND for provenance.
 """
 import argparse
 import os
@@ -31,13 +34,6 @@ from pathlib import Path
 from pd_fusion_torch.experiments.registry import MODEL_REGISTRY
 from pd_fusion_torch.utils.io import load_yaml
 from pd_fusion_torch.utils.logging import setup_logging
-
-# subcommands of the JAX CLI that the port does not run yet
-_NOT_PORTED = {
-    "download-dev": "it fetches the UCI and OpenNeuro dev datasets from outside the "
-                    "repository; a later slice ports it (ROADMAP Queue 1 item 14c)",
-}
-
 
 def _resolve_path(path_str: str) -> Path:
     p = Path(path_str)
@@ -149,19 +145,16 @@ def main(argv=None):
     full_parser.add_argument(
         "--dataset", type=str, help="Override dataset name (e.g. openneuro_ds001907)"
     )
-    for name in _NOT_PORTED:
-        subparsers.add_parser(name, add_help=False)
 
-    args, extra = parser.parse_known_args(argv)
-    if args.command in _NOT_PORTED:
-        raise NotImplementedError(
-            f"'{args.command}' is not ported to pd_fusion_torch yet: {_NOT_PORTED[args.command]}"
-        )
+    download_parser = subparsers.add_parser("download-dev")
+    download_parser.add_argument("--dataset", type=str, default="all")
+    download_parser.add_argument("--out", type=str, default="data/raw_dev")
+    download_parser.add_argument("--openneuro-metadata-only", action="store_true")
+
+    args = parser.parse_args(argv)
     if args.command is None:
         parser.print_help()
         return None
-    if extra:
-        parser.error(f"unrecognized arguments: {' '.join(extra)}")
     setup_logging()
     os.environ["PD_FUSION_COMMAND"] = "python -m pd_fusion_torch.cli " + " ".join(
         sys.argv[1:] if argv is None else argv
@@ -173,6 +166,10 @@ def main(argv=None):
         return process_and_merge_data(load_yaml(Path(args.config)), load_yaml(Path(args.columns)))
     if args.command == "prepare-dev":
         return prepare_dev()
+    if args.command == "download-dev":
+        from pd_fusion_torch.data.download.download_manager import download_dev
+
+        return download_dev(args.out, args.dataset, args.openneuro_metadata_only)
     if args.command == "train":
         # the single-split pipeline, as the JAX CLI's train subcommand
         from pd_fusion_torch.experiments.run_experiment import run_full_pipeline

@@ -3,14 +3,14 @@
 Fold-assignment parity with the JAX package is a hard requirement for
 metric parity under CV. The JAX package calls scikit-learn's
 ``StratifiedGroupKFold`` / ``StratifiedKFold`` / ``train_test_split``
-(stratified) with ``shuffle=True, random_state=seed``. The port runs
-where scikit-learn is not installed, so it keeps numpy copies of those
-three algorithms that consume a ``np.random.RandomState(seed)`` in
+(stratified or not, float or integer sizes) with ``shuffle=True,
+random_state=seed``. The port runs where scikit-learn is not installed,
+so it keeps numpy copies of those algorithms that consume a ``np.random.RandomState(seed)`` in
 scikit-learn's order and give bit-identical folds (held against
 scikit-learn in the tests).
 """
 from collections import defaultdict
-from math import ceil
+from math import ceil, floor
 from typing import Dict, Generator, List, Tuple
 
 import numpy as np
@@ -135,14 +135,47 @@ def _approximate_mode(class_counts, n_draws: int, rng) -> np.ndarray:
     return floored.astype(int)
 
 
-def _stratified_holdout(y, test_size: float, seed: int):
-    """(train, test) positions of ``train_test_split(test_size=..,
-    stratify=y, random_state=seed)`` (one ``StratifiedShuffleSplit``)."""
-    n = len(y)
-    if not 0 < test_size < 1:
-        raise ValueError(f"test_size={test_size} should be a float in the (0, 1) range")
-    n_test = ceil(test_size * n)
-    n_train = n - n_test
+def _validate_shuffle_split(n_samples: int, test_size, train_size, default_test_size=None):
+    """(n_train, n_test) as scikit-learn's ``_validate_shuffle_split``: a
+    float test size rounds up, a float train size rounds down, an int is a
+    count, and a missing size takes the rest."""
+    if test_size is None and train_size is None:
+        test_size = default_test_size
+    test_kind = np.asarray(test_size).dtype.kind
+    train_kind = np.asarray(train_size).dtype.kind
+    for name, size, kind in (("test_size", test_size, test_kind),
+                             ("train_size", train_size, train_kind)):
+        if (kind == "i" and (size >= n_samples or size <= 0)) or (
+                kind == "f" and (size <= 0 or size >= 1)):
+            raise ValueError(f"{name}={size} should be either positive and smaller than the "
+                             f"number of samples {n_samples} or a float in the (0, 1) range")
+        if size is not None and kind not in ("i", "f"):
+            raise ValueError(f"Invalid value for {name}: {size}")
+    if train_kind == "f" and test_kind == "f" and train_size + test_size > 1:
+        raise ValueError(f"The sum of test_size and train_size = {train_size + test_size}, "
+                         "should be in the (0, 1) range. Reduce test_size and/or train_size.")
+    n_test = ceil(test_size * n_samples) if test_kind == "f" else (
+        float(test_size) if test_kind == "i" else None)
+    n_train = floor(train_size * n_samples) if train_kind == "f" else (
+        float(train_size) if train_kind == "i" else None)
+    if train_size is None:
+        n_train = n_samples - n_test
+    elif test_size is None:
+        n_test = n_samples - n_train
+    if n_train + n_test > n_samples:
+        raise ValueError(f"The sum of train_size and test_size = {int(n_train + n_test)}, "
+                         f"should be smaller than the number of samples {n_samples}. "
+                         "Reduce test_size and/or train_size.")
+    n_train, n_test = int(n_train), int(n_test)
+    if n_train == 0:
+        raise ValueError(f"With n_samples={n_samples}, test_size={test_size} and "
+                         f"train_size={train_size}, the resulting train set will be empty. "
+                         "Adjust any of the aforementioned parameters.")
+    return n_train, n_test
+
+
+def _stratified_shuffle_split(y, n_train: int, n_test: int, rng):
+    """(train, test) positions of one ``StratifiedShuffleSplit`` split."""
     classes, y_indices, class_counts = np.unique(y, return_inverse=True, return_counts=True)
     n_classes = classes.shape[0]
     if np.min(class_counts) < 2:
@@ -153,7 +186,6 @@ def _stratified_holdout(y, test_size: float, seed: int):
             f"number of classes ({n_classes})"
         )
     class_indices = np.split(np.argsort(y_indices, kind="stable"), np.cumsum(class_counts)[:-1])
-    rng = np.random.RandomState(seed)
     n_i = _approximate_mode(class_counts, n_train, rng)
     t_i = _approximate_mode(class_counts - n_i, n_test, rng)
     train, test = [], []
@@ -163,6 +195,22 @@ def _stratified_holdout(y, test_size: float, seed: int):
         train.extend(perm_indices_class_i[: n_i[i]])
         test.extend(perm_indices_class_i[n_i[i]: n_i[i] + t_i[i]])
     return rng.permutation(train), rng.permutation(test)
+
+
+def train_test_split_positions(n_samples: int, train_size=None, test_size=None, stratify=None,
+                               seed: int = None):
+    """(train, test) positions of ``train_test_split(range(n_samples),
+    train_size=.., test_size=.., stratify=.., random_state=seed)``: one
+    ``StratifiedShuffleSplit`` split when ``stratify`` is given, else one
+    ``ShuffleSplit`` split (a permutation whose head is the test part)."""
+    n_train, n_test = _validate_shuffle_split(n_samples, test_size, train_size, 0.25)
+    # the splitter re-validates the integer sizes it is handed
+    _validate_shuffle_split(n_samples, n_test, n_train)
+    rng = np.random.RandomState(seed)
+    if stratify is not None:
+        return _stratified_shuffle_split(np.asarray(stratify), n_train, n_test, rng)
+    permutation = rng.permutation(n_samples)
+    return permutation[n_test: n_test + n_train], permutation[:n_test]
 
 
 def _masks_to_splits(n: int, test_sets) -> Generator[Tuple[np.ndarray, np.ndarray], None, None]:
@@ -202,10 +250,12 @@ def stratified_split(
     df: pd.DataFrame, test_size: float = 0.2, val_size: float = 0.1, seed: int = 42
 ):
     """70/10/20 stratified train/val/test split (two chained holdouts)."""
-    tr, te = _stratified_holdout(df[TARGET_COL].to_numpy(), test_size, seed)
+    y = df[TARGET_COL].to_numpy()
+    tr, te = train_test_split_positions(len(y), test_size=test_size, stratify=y, seed=seed)
     train_val, test = df.iloc[tr], df.iloc[te]
-    tr, va = _stratified_holdout(
-        train_val[TARGET_COL].to_numpy(), val_size / (1 - test_size), seed
+    y = train_val[TARGET_COL].to_numpy()
+    tr, va = train_test_split_positions(
+        len(y), test_size=val_size / (1 - test_size), stratify=y, seed=seed
     )
     return train_val.iloc[tr], train_val.iloc[va], test
 
@@ -239,7 +289,8 @@ def split_train_calibration(
         # first fold of a group K-fold whose fold count approximates calib_size
         n_splits = max(2, int(round(1.0 / calib_size)))
         return next(get_group_kfold_splits(df, n_splits, seed, group_col))
-    tr, te = _stratified_holdout(df[TARGET_COL].to_numpy(), calib_size, seed)
+    y = df[TARGET_COL].to_numpy()
+    tr, te = train_test_split_positions(len(y), test_size=calib_size, stratify=y, seed=seed)
     return df.iloc[tr], df.iloc[te]
 
 

@@ -310,11 +310,19 @@ def train_gbdt(
     min_child_weight: float,
     min_child_samples: float,
     hist_mode: str = "scatter",
+    n_rows: Optional[List[int]] = None,
 ) -> Dict[str, torch.Tensor]:
     """Train the ensemble(s). The margin's dtype is ``y``'s (float32 in
     production; the tests run float64, where cross-implementation ulp
     drift cannot flip near-tie argmaxes). Returns per key [R, ...], or
-    [K, R, ...] for a fold-batched stack."""
+    [K, R, ...] for a fold-batched stack.
+
+    ``n_rows`` (a stack's real row counts, padding after them) takes each
+    fold's probabilities from a sigmoid over its own rows alone, 2K more
+    launches a round: the CPU's vectorised sigmoid rounds an element by its
+    place in the tensor, so only then does each fold's ensemble there equal
+    its unpadded single fit. CUDA's sigmoid does not depend on the place,
+    so ``fit_gbdt_stack`` passes it on the CPU only."""
     single, bins, (y, w) = _fold_batched(bins, y, w)
     K, n, _ = bins.shape
     base = torch.as_tensor(base_score, dtype=y.dtype, device=y.device).reshape(-1)
@@ -324,6 +332,8 @@ def train_gbdt(
         onehots = bin_onehots(bins, y.dtype) if hist_mode == "onehot" else None
         for _ in range(n_rounds):
             p = torch.sigmoid(margin)
+            for k, n_k in enumerate(n_rows or ()):
+                p[k, :n_k] = torch.sigmoid(margin[k, :n_k])
             g = (p - y) * w
             h = p * (1.0 - p) * w
             tree, delta = _build_tree(bins, g, h, w, depth, lr, lam, min_child_weight,
@@ -426,7 +436,8 @@ class DeviceHistGBDT:
                     min_child_samples=self.min_child_samples,
                     hist_mode=resolve_hist_mode(self.hist_mode))
 
-    def fit(self, X, y, sample_weight=None):
+    def _fit_inputs(self, X, y, sample_weight=None):
+        """(edges, bins, y, weights, base score) of a fit on (X, y)."""
         X = np.asarray(X, np.float32)
         y = np.asarray(y, np.float32).reshape(-1)
         w = (np.ones_like(y) if sample_weight is None
@@ -436,9 +447,11 @@ class DeviceHistGBDT:
             counts = np.bincount(y.astype(np.int64), minlength=2).astype(np.float64)
             cw = len(y) / (2.0 * np.maximum(counts, 1.0))
             w = cw[y.astype(np.int64)].astype(np.float32)
-        self.edges_ = fit_bin_edges(X)
-        bins = bin_features(X, self.edges_)
-        self.base_score_ = compute_base_score(y, w)
+        edges = fit_bin_edges(X)
+        return edges, bin_features(X, edges), y, w, compute_base_score(y, w)
+
+    def fit(self, X, y, sample_weight=None):
+        self.edges_, bins, y, w, self.base_score_ = self._fit_inputs(X, y, sample_weight)
         dev = get_device()
         trees = train_gbdt(torch.as_tensor(bins, device=dev), torch.as_tensor(y, device=dev),
                            torch.as_tensor(w, device=dev), np.float32(self.base_score_),
@@ -509,6 +522,43 @@ class DeviceHistGBDT:
         phi, ev = treeshap.shap_values(trees, bins, self.base_score_, depth=self.max_depth)
         self.expected_value_ = ev
         return phi
+
+
+def fit_gbdt_stack(models: List["DeviceHistGBDT"], Xs, ys) -> List["DeviceHistGBDT"]:
+    """Fit ``models[i]`` on ``(Xs[i], ys[i])`` as one fold-batched
+    ``train_gbdt`` call; the models share their hyperparameters. Each is
+    binned with its own edges and weighted as its ``fit`` would; rows are
+    padded to the longest with weight 0 (exact no-ops) and features to the
+    widest with ``MISSING_BIN`` codes, whose splits leave one side empty and
+    so never pass ``min_child_weight`` (> 0): each ensemble equals the
+    model's own ``fit``, which the tests and ``analysis/tabular_checks.py``
+    hold."""
+    hp = models[0].hparams()
+    if any(m.hparams() != hp or m.class_weight != models[0].class_weight for m in models):
+        raise ValueError("fit_gbdt_stack needs models with one set of hyperparameters")
+    if not hp["min_child_weight"] > 0.0:
+        raise ValueError("fit_gbdt_stack pads features, which needs min_child_weight > 0")
+    prepared = [models[0]._fit_inputs(X, y) for X, y in zip(Xs, ys)]
+    K = len(models)
+    n_max = max(len(y) for _, _, y, _, _ in prepared)
+    f_max = max(b.shape[1] for _, b, _, _, _ in prepared)
+    bins = np.full((K, n_max, f_max), MISSING_BIN, np.int32)
+    y_st = np.zeros((K, n_max), np.float32)
+    w_st = np.zeros((K, n_max), np.float32)
+    for k, (_, b, y, w, _) in enumerate(prepared):
+        bins[k, : b.shape[0], : b.shape[1]] = b
+        y_st[k, : len(y)] = y
+        w_st[k, : len(y)] = w
+    dev = get_device()
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    bases = np.array([base for *_, base in prepared], np.float32)
+    n_rows = [len(p[2]) for p in prepared] if dev.type == "cpu" else None
+    trees = train_gbdt(t(bins), t(y_st), t(w_st), t(bases), n_rows=n_rows, **hp)
+    for k, (m, (edges, *_, base)) in enumerate(zip(models, prepared)):
+        m.edges_, m.base_score_ = edges, base
+        m._trees_dev = {key: v[k] for key, v in trees.items()}
+        m.trees_ = {key: v.cpu().numpy() for key, v in m._trees_dev.items()}
+    return models
 
 
 def gbdt_trees_from_jax(trees, device=None) -> Dict[str, torch.Tensor]:

@@ -51,38 +51,41 @@ def _lower_bin_bounds_f32(n_bins: int) -> np.ndarray:
 
 
 def _tie_group_bounds(s_sorted: Tensor):
-    """For each position in a sorted array, indices of the first and last
-    element of its tie group. O(n) via cummax / reversed cummin."""
-    n = s_sorted.shape[0]
-    idx = torch.arange(n, device=s_sorted.device)
-    diff = s_sorted[1:] != s_sorted[:-1]
-    one = torch.ones(1, dtype=torch.bool, device=s_sorted.device)
-    is_start = torch.cat([one, diff])
-    is_end = torch.cat([diff, one])
-    group_start = torch.cummax(torch.where(is_start, idx, 0), 0).values
-    group_end = torch.cummin(torch.where(is_end, idx, n - 1).flip(0), 0).values.flip(0)
+    """For each position in an array sorted along its last axis, indices of
+    the first and last element of its tie group. O(n) via cummax / reversed
+    cummin."""
+    n = s_sorted.shape[-1]
+    idx = torch.arange(n, device=s_sorted.device).expand_as(s_sorted)
+    diff = s_sorted[..., 1:] != s_sorted[..., :-1]
+    one = torch.ones(s_sorted.shape[:-1] + (1,), dtype=torch.bool, device=s_sorted.device)
+    is_start = torch.cat([one, diff], -1)
+    is_end = torch.cat([diff, one], -1)
+    group_start = torch.cummax(torch.where(is_start, idx, 0), -1).values
+    group_end = torch.cummin(torch.where(is_end, idx, n - 1).flip(-1), -1).values.flip(-1)
     return group_start, group_end
 
 
 def roc_auc(y_true: Tensor, y_prob: Tensor, weights: Optional[Tensor] = None) -> Tensor:
     """Tie-aware (midrank) weighted ROC-AUC: for each positive, the
     negative weight strictly below its tie group plus half the negative
-    weight inside it."""
+    weight inside it. Works over the last axis: ``y_prob`` [..., N] (each
+    row sorted on its own) against ``y_true`` and ``weights`` that
+    broadcast to it -> [...]."""
     w = _ones_like_weights(y_prob, weights)
     y = y_true.to(y_prob.dtype)
-    order = torch.argsort(y_prob, stable=True)
-    s = y_prob[order]
-    yw = (y * w)[order]
-    nw = ((1.0 - y) * w)[order]
+    order = torch.argsort(y_prob, dim=-1, stable=True)
+    s = torch.gather(y_prob, -1, order)
+    yw = torch.gather((y * w).expand_as(y_prob), -1, order)
+    nw = torch.gather(((1.0 - y) * w).expand_as(y_prob), -1, order)
 
     group_start, group_end = _tie_group_bounds(s)
-    cum_neg = torch.cumsum(nw, 0)
+    cum_neg = torch.cumsum(nw, -1)
     neg_below = torch.where(
-        group_start > 0, cum_neg[torch.clamp(group_start - 1, min=0)], 0.0
+        group_start > 0, torch.gather(cum_neg, -1, torch.clamp(group_start - 1, min=0)), 0.0
     )
-    neg_in_group = cum_neg[group_end] - neg_below
+    neg_in_group = torch.gather(cum_neg, -1, group_end) - neg_below
     contrib = yw * (neg_below + 0.5 * neg_in_group)
-    return torch.sum(contrib) / (torch.sum(yw) * torch.sum(nw))
+    return torch.sum(contrib, -1) / (torch.sum(yw, -1) * torch.sum(nw, -1))
 
 
 def average_precision(y_true: Tensor, y_prob: Tensor, weights: Optional[Tensor] = None) -> Tensor:

@@ -18,8 +18,11 @@ backbones and the embed pipeline, card against CPU) and
 ``pd_fusion_torch/models/ft_checks.py`` (one MIL fine-tune step at full
 width, frozen and not, card against CPU),
 ``pd_fusion_torch/ops/volume_stats_checks.py`` (the simple 3-D statistics,
-card against CPU) and ``pd_fusion_torch/nn/cnn3d_checks.py`` (one CNN3D
-training step, card against CPU), which ``chip_smoke.py`` runs too.
+card against CPU), ``pd_fusion_torch/nn/cnn3d_checks.py`` (one CNN3D
+training step, card against CPU) and
+``pd_fusion_torch/analysis/tabular_checks.py`` (the PPMI suites' logistic
+fit, AUC screen, permutation probes and stacked GBDT fit), which
+``chip_smoke.py`` runs too.
 """
 import pytest
 import torch
@@ -199,3 +202,27 @@ def test_cnn3d_step_on_the_card_matches_the_cpu(cuda):
     vols = cnn3d_checks.synthetic_volumes(10, cnn3d_checks.CNN_CONFIG["target_shape"])
     errs = cnn3d_checks.compare_card_with_cpu(vols, cuda)
     assert errs["loss_rel"] <= cnn3d_checks.LOSS_RTOL
+
+
+def test_balanced_logreg_on_the_card_matches_the_cpu(cuda):
+    from pd_fusion_torch.analysis import tabular_checks
+
+    tabular_checks.check_logreg(cuda, shape=(300, 40))
+
+
+def test_auc_screen_on_the_card_matches_the_cpu(cuda):
+    from pd_fusion_torch.analysis import tabular_checks
+
+    tabular_checks.check_auc_screen(cuda)
+
+
+def test_permutation_screen_on_the_card_matches_the_cpu(cuda):
+    from pd_fusion_torch.analysis import tabular_checks
+
+    tabular_checks.check_permutation_screen(cuda, shape=(300, 20))
+
+
+def test_stacked_gbdt_fit_on_the_card_equals_each_models_own_fit(cuda):
+    from pd_fusion_torch.analysis import tabular_checks
+
+    tabular_checks.check_gbdt_stack(cuda, K=3, n=300, f=20, rounds=20)

@@ -39,6 +39,13 @@ VOLUME_MODULES = ("ops.volume_stats", "ops.volume_stats_checks", "nn.cnn3d", "nn
                   "data.dev_datasets.uci_parkinsons", "data.dev_datasets.uci_telemonitoring",
                   "data.dev_datasets.openneuro", "features", "features.clinical",
                   "features.datspect", "features.mri")
+# download-dev and the PPMI study-data path
+STUDY_MODULES = ("data.download", "data.download.uci_download", "data.download.openneuro_download",
+                 "data.download.download_manager", "data.ppmi_studydata", "analysis",
+                 "analysis.tabular", "analysis.column_transformer", "analysis.tabular_checks",
+                 "nn.logreg", "scripts._cli_common", "scripts.ppmi_build_dataset",
+                 "scripts.ppmi_train_tabular", "scripts.ppmi_eval_report",
+                 "scripts.ppmi_meaningful_suite")
 
 
 def test_port_imports_without_jax_or_jax_package():
@@ -49,10 +56,10 @@ def test_port_imports_without_jax_or_jax_package():
     ).stdout.strip()
     count, rest = out.split(maxsplit=1)
     bad, names = rest.split("] ", 1)
-    assert int(count) >= 56  # every module of the port was imported
+    assert int(count) >= 71  # every module of the port was imported
     assert bad + "]" == "[]"
     assert ({f"pd_fusion_torch.{m}"
-             for m in SLICE_MODULES + EMBED_MODULES + FT_MODULES + VOLUME_MODULES}
+             for m in SLICE_MODULES + EMBED_MODULES + FT_MODULES + VOLUME_MODULES + STUDY_MODULES}
             <= set(names.split()))
 
 
@@ -126,3 +133,22 @@ def test_set_seed_matches_jax_package_host_draws_and_chains_generators():
     b = [torch.rand(3, generator=fresh_generator()) for _ in range(2)]
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     assert not torch.equal(a[0], a[1])
+
+
+def test_chip_smoke_imports_no_jax_or_jax_package():
+    for mod in _imported_modules(SRC.parent / "chip_smoke.py"):
+        assert mod.split(".")[0] not in ("jax", "jaxlib", "optax", "pd_fusion"), mod
+
+
+def test_chip_smoke_fails_without_a_card_and_prints_no_result(tmp_path):
+    """Without a CUDA device the script exits non-zero before any phase and
+    prints no result line, also when run alone outside the repository."""
+    import shutil
+
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(SRC.parent / "chip_smoke.py", alone)
+    for script in (SRC.parent / "chip_smoke.py", alone):
+        run = subprocess.run([sys.executable, str(script)], capture_output=True, text=True,
+                             timeout=120, cwd=tmp_path)
+        assert run.returncode != 0
+        assert '"ok"' not in run.stdout and '"kernels"' not in run.stdout

@@ -331,15 +331,16 @@ def test_cli_reads_cv_folds_from_config_as_given(monkeypatch, tmp_path):
     assert calls == [("full",), ("cv", 5), ("cv", 3)]
 
 
-def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
-    """``download-dev`` is the one subcommand still refused. The cnn3d
-    feature mode (configs/data_openneuro_ds001907.yaml) and the UCI dev
-    dataset run now, and without their files they say which to make."""
+def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, capsys):
+    """No subcommand is refused any more: ``download-dev`` prints the manual
+    instructions. The cnn3d feature mode (configs/data_openneuro_ds001907.yaml)
+    and the UCI dev dataset run, and without their files they say which to
+    make."""
     from pd_fusion_torch import cli
     from pd_fusion_torch.paths import ROOT_DIR
 
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14c"):
-        cli.main(["download-dev"])
+    cli.main(["download-dev", "--dataset", "manual", "--out", str(tmp_path / "dev")])
+    assert "MANUAL DOWNLOAD REQUIRED" in capsys.readouterr().out
     manifest = tmp_path / "manifest.csv"
     manifest.write_text("subject_id,session,label,t1wbrain_path\n")
     monkeypatch.setenv("PD_FUSION_DS001907_MANIFEST", str(manifest))

@@ -180,7 +180,47 @@ Phases; any failure exits non-zero before the final line:
    finite metrics, each stage's wall time, K1 launched neither as kernel
    nor plain; then the suites' device programs at the widest ablation,
    profiled and between CUDA events, beside their bounds;
-31. a JSON line with each device program's host and device time and
+31. the fused MIL sweep (``parallel/seed_sweep.py::run_multi_seed_cv`` with
+   ``mil_attention``) over phase 16's bags on phase 17's config with nested
+   calibration off (the sweep hands the engine explicit fold masks, which
+   nested calibration refuses), seeds 42 and 43 (a cut of the sweep tier's
+   42-44, ``MIL_SWEEP_SEEDS``): K1 launched (its count zeroed before and
+   read after), the plain pool never; seed 42's fused predictions against
+   its standalone run, printed (ragged group folds pad to the sweep's
+   widest);
+32. ``python -m pd_fusion_torch.scripts.submit_sweep --local --fused
+   --synthetic --k-fold 5 --base-config configs/quickstart.yaml`` through
+   its ``main`` over the seven models x seeds 42-44, each family at its
+   config's widths (``configs/model_fusion.yaml``, ``model_moe.yaml``,
+   ``model_unimodal.yaml`` on the device GBDT): every run directory's
+   artifacts; ``fusion_moddrop`` and ``unimodal_clinical`` held against a
+   standalone CV under each seed (the largest difference printed); the
+   fused stacked trainer step (S x K = 15) under ``torch.profiler`` beside
+   its bound; those two models' sequential ``--local`` sweeps timed beside
+   their fused ones in turns (fused, local, local, fused);
+   ``aggregate_results``, ``bootstrap_ci`` (n=1000) and ``generate_summary``
+   on the 21 run directories and their files; the bootstrap program (1,000
+   resamples x 1,500 rows) card vs CPU on the same indices
+   (``analysis/sweep_checks.py``), then timed with CUDA events beside its
+   bound;
+33. ``ppmi_stress_test`` at its defaults (5 folds, 30 epochs, batch 128,
+   moddrop 0.3) on phase 30's ``ppmi_subject_baseline.csv``: its files, 30
+   finite rows; fold 1's MLP training card vs CPU on the same draws; one
+   training step timed beside its bound;
+34. ``ppmi_imaging_upgrade`` on phase 30's tables:
+   ``configs/ppmi_imaging_upgrade.yaml`` uncut (3 seeds x 5 folds x 4
+   settings x logreg/lgbm, SHAP on), the ``_progression`` and
+   ``_imaging_available`` configs at one seed each (a cut), and, if the
+   logistic fit won all three, the uncut config's settings with ``models:
+   [lgbm]`` at one seed so the TreeSHAP leg runs: every artifact, finite
+   metrics, each stage's wall and the SHAP leg's rows, chunks and seconds;
+   then a GBDT round of the uncut config's stacked fit at its widest
+   setting and a TreeSHAP chunk of the suites' 300 trees, profiled beside
+   their bounds. K1 must launch 0 times in phases 32-35;
+35. ``submit_sweep --dry-run`` and ``submit_dual_h200 --dry-run`` through
+   their ``main`` with ``subprocess.run`` refusing: 21 scripts asking for
+   one card each, and 2 jobs holding the 21 runs; nothing submitted;
+36. a JSON line with each device program's host and device time and
    launches a step; one with each path's wall time, busy share and AUC;
    one with each kernel's launches (by path), error and times (B=16 and
    B=80, and the launch floor); the card line again; then ``{"ok": true,
@@ -2146,6 +2186,39 @@ def _finite(frame, what):
         raise RuntimeError(f"{what}: {'no rows' if frame.empty else f'non-finite {bad}'}")
 
 
+def stacked_gbdt_round(torch, np, Xs, ys, rounds):
+    """``train_gbdt``'s inputs for the suites' GBDTs on ``(Xs[i], ys[i])``
+    stacked as ``fit_gbdt_stack`` stacks them, ``rounds`` of the suites'
+    300, and the bound of those rounds. -> (args, hparams, (bound ms,
+    bound by), (K, rows, features))."""
+    from pd_fusion_torch.analysis.tabular import SUITE_GBDT
+    from pd_fusion_torch.nn.gbdt import MISSING_BIN, N_VALUE_BINS, DeviceHistGBDT
+
+    proto = DeviceHistGBDT(**SUITE_GBDT)
+    prepared = [proto._fit_inputs(X, y) for X, y in zip(Xs, ys)]
+    K, n_max = len(prepared), max(len(p[2]) for p in prepared)
+    f_max = max(p[1].shape[1] for p in prepared)
+    bins = np.full((K, n_max, f_max), MISSING_BIN, np.int32)
+    yk, wk = np.zeros((K, n_max), np.float32), np.zeros((K, n_max), np.float32)
+    for k, (_, b, yy, ww, _) in enumerate(prepared):
+        bins[k, : b.shape[0], : b.shape[1]], yk[k, : len(yy)], wk[k, : len(yy)] = b, yy, ww
+    t = lambda a: torch.as_tensor(a, device=DEV)  # noqa: E731
+    args = (t(bins), t(yk), t(wk), t(np.array([p[4] for p in prepared], np.float32)))
+    hp = dict(proto.hparams(), n_rounds=rounds)
+    # what a round needs, level by level: the bins and the (g, h, w) rows
+    # read once, three adds per row and feature into the histograms, and
+    # the split scan (cumsum and two gain arms, about 33 operations per
+    # node, feature and threshold); the onehot lowering's own products are
+    # reported apart, as its throughput
+    depth, per_bin = hp["depth"], 3 + 2 * 15
+    n_bytes = depth * (bins.size * bins.itemsize + 3 * K * n_max * 4)
+    ops = sum(3 * K * n_max * f_max + per_bin * K * (1 << lv) * f_max * N_VALUE_BINS
+              for lv in range(depth))
+    t_bytes, t_ops = n_bytes / H100_BYTES_PER_S * 1e3, ops / H100_F32_FLOPS * 1e3
+    bound = (max(t_bytes, t_ops) * rounds, "bytes" if t_bytes >= t_ops else "operations")
+    return args, hp, bound, (K, n_max, f_max)
+
+
 def study_programs(torch, np, cfg, processed: Path, seeds) -> dict:
     """The suites' device programs at the sweep's widest ablation
     (full_fusion) on seed ``seeds[0]``'s split, each as the suite calls it:
@@ -2154,12 +2227,8 @@ def study_programs(torch, np, cfg, processed: Path, seeds) -> dict:
     import pandas as pd
 
     from pd_fusion_torch.analysis.column_transformer import SuiteColumnTransformer
-    from pd_fusion_torch.analysis.tabular import (
-        SUITE_GBDT,
-        numeric_feature_columns,
-        permutation_inputs,
-    )
-    from pd_fusion_torch.nn.gbdt import MISSING_BIN, N_VALUE_BINS, DeviceHistGBDT, train_gbdt
+    from pd_fusion_torch.analysis.tabular import numeric_feature_columns, permutation_inputs
+    from pd_fusion_torch.nn.gbdt import train_gbdt
     from pd_fusion_torch.nn.logreg import BalancedLogisticRegression
     from pd_fusion_torch.nn.trainer import fullbatch_impl
     from pd_fusion_torch.ops.metrics import roc_auc
@@ -2234,28 +2303,9 @@ def study_programs(torch, np, cfg, processed: Path, seeds) -> dict:
     # fold-batched train_gbdt call (binned as fit_gbdt_stack bins them), a
     # few of its 300 rounds
     rounds = 20
-    proto = DeviceHistGBDT(**SUITE_GBDT)
-    prepared = [proto._fit_inputs(p[0], p[1]) for p in parts]
-    K, n_max = len(prepared), max(len(p[2]) for p in prepared)
-    f_max = max(p[1].shape[1] for p in prepared)
-    bins = np.full((K, n_max, f_max), MISSING_BIN, np.int32)
-    yk, wk = np.zeros((K, n_max), np.float32), np.zeros((K, n_max), np.float32)
-    for k, (_, b, yy, ww, _) in enumerate(prepared):
-        bins[k, : b.shape[0], : b.shape[1]], yk[k, : len(yy)], wk[k, : len(yy)] = b, yy, ww
-    t = lambda a: torch.as_tensor(a, device=DEV)  # noqa: E731
-    args = (t(bins), t(yk), t(wk), t(np.array([p[4] for p in prepared], np.float32)))
-    hp = dict(proto.hparams(), n_rounds=rounds)
-    # what a round needs, level by level: the bins and the (g, h, w) rows
-    # read once, three adds per row and feature into the histograms, and
-    # the split scan (cumsum and two gain arms, about 33 operations per
-    # node, feature and threshold); the onehot lowering's own products are
-    # reported apart, as its throughput
-    depth, per_bin = hp["depth"], 3 + 2 * 15
-    n_bytes = depth * (bins.size * bins.itemsize + 3 * K * n_max * 4)
-    ops = sum(3 * K * n_max * f_max + per_bin * K * (1 << lv) * f_max * N_VALUE_BINS
-              for lv in range(depth))
-    t_bytes, t_ops = n_bytes / H100_BYTES_PER_S * 1e3, ops / H100_F32_FLOPS * 1e3
-    bound = (max(t_bytes, t_ops) * rounds, "bytes" if t_bytes >= t_ops else "operations")
+    args, hp, bound, (K, n_max, f_max) = stacked_gbdt_round(
+        torch, np, [p[0] for p in parts], [p[1] for p in parts], rounds)
+    depth = hp["depth"]
     name = f"gbdt_round_K{K}_n{n_max}_f{f_max}"
     record(name, lambda: train_gbdt(*args, **hp), rounds, *bound)
     onehot_flops = 2 * f_max * 256 * n_max * 3 * ((1 << depth) - 1) * K
@@ -2265,7 +2315,7 @@ def study_programs(torch, np, cfg, processed: Path, seeds) -> dict:
           f"{rec['onehot_lowering_tflops']:.3f} TFLOP/s over the round's device time")
     # the same rounds with each fold's sigmoid taken over its own rows, as
     # fit_gbdt_stack does on the CPU only (2K more launches a round)
-    per_fold = lambda: train_gbdt(*args, n_rows=[len(p[2]) for p in prepared], **hp)  # noqa
+    per_fold = lambda: train_gbdt(*args, n_rows=[len(p[1]) for p in parts], **hp)  # noqa
     record(f"{name}_per_fold_sigmoid", per_fold, rounds, *bound)
     host = {"shared": [], "per_fold": []}
     for _ in range(3):  # in turns, synchronised at both ends
@@ -2413,6 +2463,540 @@ def run_study_path(torch, np, yaml, ap, tmp: Path):
 
     programs = study_programs(torch, np, cfg, processed, seeds)
     return paths, programs, launches
+
+
+# ---------------------------------------------------------------------------
+# the sweep tier and the two PPMI analyses (phases 31-35)
+# ---------------------------------------------------------------------------
+
+SWEEP_K = 5
+SWEEP_COMPARED = ("fusion_moddrop", "unimodal_clinical")  # fused against standalone
+# the fused MIL sweep's seeds: a cut of the sweep tier's 42-44 (depth only)
+MIL_SWEEP_SEEDS = (42, 43)
+BOOT_N = 1000
+IMAGING_CONFIGS = (  # (config, seeds kept: None for all of them)
+    ("ppmi_imaging_upgrade.yaml", None),
+    ("ppmi_imaging_upgrade_progression.yaml", 1),
+    ("ppmi_imaging_upgrade_imaging_available.yaml", 1),
+)
+IMAGING_ARTIFACTS = (
+    "kept_dropped_columns.json", "imaging_columns.json", "imaging_availability_summary.json",
+    "imaging_missingness_per_feature.csv", "imaging_missingness_per_subject.csv",
+    "covariates_used.json", "per_fold_metrics.csv", "predictions.csv", "summary_mean.csv",
+    "feature_importance.csv", "univariate_top.csv", "permutation_test.csv", "paired_tests.json",
+    "ppmi_imaging_upgrade.log")
+IMAGING_PLOTS = ("roc_auc_bar.png", "roc_curves.png", "calibration_curves.png")
+
+
+def _has_matplotlib() -> bool:
+    return importlib.util.find_spec("matplotlib") is not None
+
+
+def _zero_k1(ap, launches, name):
+    """K1's counts of the path just run, which must both be 0."""
+    k1 = dict(ap.launch_counts)
+    if k1 != {"kernel": 0, "plain": 0}:
+        raise RuntimeError(f"{name} launched K1: {k1}")
+    launches[name] = k1
+
+
+def run_mil_sweep(yaml, ap, tmp: Path, manifest: Path):
+    """Phase 31: ``run_multi_seed_cv`` with ``mil_attention`` over the bags
+    of phase 16, on phase 17's config (nested calibration off: the sweep
+    hands the engine explicit fold masks, which nested calibration refuses,
+    as in the JAX package), seeds ``MIL_SWEEP_SEEDS``; K1's launches on
+    this path; seed 42's fused predictions against its standalone run. ->
+    (path record, K1 kernel launches)."""
+    from pd_fusion_torch.analysis import sweep_checks as sc
+    from pd_fusion_torch.parallel.seed_sweep import run_multi_seed_cv
+
+    config_path, _ = data_config_copy(yaml, MIL_CONFIG, tmp, manifest,
+                                      tmp / "embeddings_resnet2d", "mil_sweep")
+    cfg = yaml.safe_load(config_path.read_text())
+    cfg["nested_calibration"] = False
+    data_config = yaml.safe_load(Path(cfg["data_config"]).read_text())
+    eval_config = yaml.safe_load((ROOT / cfg["eval_config"]).read_text())
+    k = int(cfg["cv_folds"])
+    print(f"depth cut: the fused MIL sweep's seeds {list(MIL_SWEEP_SEEDS)} of the sweep tier's "
+          f"42-44; nested calibration off (explicit fold masks)")
+    ap.reset_launch_counts()
+    t0 = time.perf_counter()
+    out, sweep_dir = run_multi_seed_cv(dict(cfg), data_config, eval_config,
+                                       seeds=list(MIL_SWEEP_SEEDS), k=k, synthetic=False,
+                                       sweep_dir=tmp / "mil_sweep")
+    wall = time.perf_counter() - t0
+    k1 = dict(ap.launch_counts)
+    if k1["kernel"] <= 0 or k1["plain"] != 0:
+        raise RuntimeError(f"the fused MIL sweep: K1 launches {k1}")
+    for seed in MIL_SWEEP_SEEDS:
+        require_files(sweep_dir / f"mil_attention_s{seed}",
+                      ["results_aggregated.yaml", "resolved_config.yaml", "provenance.yaml"]
+                      + [f"results_fold_{i}.yaml" for i in range(1, k + 1)]
+                      + [f"preds_fold_{i}_full_observation.csv" for i in range(1, k + 1)],
+                      f"the fused MIL sweep, seed {seed}")
+    aucs = {s: out[s]["full_observation"]["roc_auc"]["mean"] for s in MIL_SWEEP_SEEDS}
+    if not all(math.isfinite(a) for a in aucs.values()):
+        raise RuntimeError(f"the fused MIL sweep: ROC-AUC {aucs}")
+    t0 = time.perf_counter()
+    gaps = sc.standalone_gaps(cfg, data_config, eval_config, MIL_SWEEP_SEEDS[:1], k, sweep_dir,
+                              synthetic=False)
+    standalone_s = time.perf_counter() - t0
+    print(f"fused MIL sweep ({len(MIL_SWEEP_SEEDS)} seeds x {k} group folds, "
+          f"configs/openneuro_ds001907_resnet2d_mil.yaml on phase 16's bags): wall {wall:.3f} s, "
+          f"K1 launches {k1['kernel']}, plain 0; full_observation ROC-AUC by seed "
+          f"{ {s: round(a, 4) for s, a in aucs.items()} }; seed 42 fused vs standalone "
+          f"(ragged group folds pad to the sweep's widest) max abs diff {gaps[42]:.3e} "
+          f"(standalone {standalone_s:.3f} s)")
+    return ({"name": "mil_fused_sweep", "wall_s": wall, "seeds": len(MIL_SWEEP_SEEDS), "folds": k,
+             "k1_launches": k1["kernel"], "auc_by_seed": aucs,
+             "fused_vs_standalone_max_abs_diff_s42": gaps[42]}, k1["kernel"])
+
+
+def _flat_runs(sweep_dir: Path, flat: Path):
+    """Every fused run directory (``<model>/<model_type>_s<seed>``) linked
+    into one directory, the layout the sweep's analysis scripts walk."""
+    flat.mkdir()
+    runs = sorted(d for m in sweep_dir.iterdir() if m.is_dir() and m.name not in ("logs",
+                                                                                    "scripts")
+                  for d in m.iterdir() if d.is_dir())
+    for d in runs:
+        (flat / f"{d.parent.name}__{d.name}").symlink_to(d, target_is_directory=True)
+    return sorted(flat.iterdir())
+
+
+def bootstrap_program(torch, programs):
+    """The bootstrap's device program at ``sweep_checks.BOOT_SHAPE`` (1,000
+    resamples of a model's 1,500 pooled rows): card against CPU on the same
+    indices, then timed beside its bound. -> max abs err."""
+    from pd_fusion_torch.analysis import sweep_checks as sc
+    from pd_fusion_torch.ops.metrics import binary_metrics
+
+    err = sc.check_bootstrap(DEV)
+    n, N = sc.BOOT_SHAPE
+    y_r, p_r = (t.to(DEV) for t in sc.bootstrap_inputs(n, N))
+    fn = lambda: binary_metrics(y_r, p_r)  # noqa: E731
+    rec = with_event_time(torch, program_profile(torch, fn), fn, reps=5)
+    # each input read once, the six [n] metrics written once; the work: a
+    # sort of each resample (about 2 N log2 N operations) and about 60
+    # elementwise operations a row over the six metrics
+    n_bytes = 2 * n * N * 4 + 6 * n * 4
+    ops = n * N * (2 * math.log2(N) + 60)
+    t_bytes, t_ops = n_bytes / H100_BYTES_PER_S * 1e3, ops / H100_F32_FLOPS * 1e3
+    rec.update(bound_ms_per_call=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations", card_vs_cpu_max_abs=err)
+    print(f"bootstrap program ({n} resamples x {N} rows, six metrics) card vs CPU on the same "
+          f"indices: max abs err {err:.3e} (tolerance {sc.BOOT_ATOL})")
+    print_program(f"bootstrap_n{n}_N{N}", rec)
+    print(f"    bound {rec['bound_ms_per_call']:.6f} ms a call by {rec['bound_by']}")
+    programs[f"bootstrap_n{n}_N{N}"] = rec
+    return err
+
+
+def run_sweep_tier(torch, np, yaml, ap, tmp: Path):
+    """Phase 32: ``submit_sweep --local --fused --synthetic --k-fold 5
+    --base-config configs/quickstart.yaml`` over the seven models x seeds
+    42-44 (every family at its config's widths); fused against standalone
+    for ``SWEEP_COMPARED``; their sequential ``--local`` sweeps timed beside
+    the fused ones in turns; ``aggregate_results``, ``bootstrap_ci`` (n=1000)
+    and ``generate_summary`` on the sweep; the fused trainer's stacked
+    step (S x K = 15) profiled; the bootstrap program card vs CPU and
+    timed. -> (paths, programs, K1 launches by path)."""
+    from pd_fusion_torch.analysis import aggregate_results, bootstrap_ci, generate_summary
+    from pd_fusion_torch.analysis import sweep_checks as sc
+    from pd_fusion_torch.nn import trainer as TT
+    from pd_fusion_torch.paths import RUNS_DIR
+    from pd_fusion_torch.scripts import submit_sweep as ss
+
+    paths, programs, launches = [], {}, {}
+    base = ["--local", "--synthetic", "--k-fold", str(SWEEP_K), "--base-config", str(QUICKSTART)]
+    work = tmp / "fused"
+    work.mkdir()
+    calls = []
+    ap.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.chdir(work), captured(TT, "minibatch_moddrop_impl", calls):
+        sweep_dir = work / ss.main(base + ["--fused"])
+    wall = time.perf_counter() - t0
+    _zero_k1(ap, launches, "fused_tabular_sweep")
+    print(f"submit_sweep --local --fused ({len(ss.MODELS)} models x seeds {ss.SEEDS} x "
+          f"{SWEEP_K} folds, configs/quickstart.yaml): wall {wall:.3f} s, K1 launches 0")
+    aucs = {}
+    for model in ss.MODELS:
+        runs = sorted((sweep_dir / model).iterdir())
+        if len(runs) != len(ss.SEEDS):
+            raise RuntimeError(f"the fused sweep of {model}: run directories {runs}")
+        for run in runs:
+            require_files(run, ["results_aggregated.yaml", "resolved_config.yaml",
+                                "provenance.yaml", "eval_config.yaml"]
+                          + [f"results_fold_{i}.yaml" for i in range(1, SWEEP_K + 1)]
+                          + [f"preds_fold_{i}_full_observation.csv"
+                             for i in range(1, SWEEP_K + 1)], f"the fused sweep's {run.name}")
+        aggs = [yaml.safe_load((r / "results_aggregated.yaml").read_text()) for r in runs]
+        aucs[model] = [a["full_observation"]["roc_auc"]["mean"] for a in aggs]
+        if len(aggs[0]) != 6 or not all(math.isfinite(a) for a in aucs[model]):
+            raise RuntimeError(f"the fused sweep of {model}: {aucs[model]}")
+        print(f"  {model:18s} full_observation ROC-AUC by seed "
+              f"{[round(a, 4) for a in aucs[model]]}")
+    paths.append({"name": "fused_tabular_sweep", "wall_s": wall, "models": len(ss.MODELS),
+                  "seeds": len(ss.SEEDS), "folds": SWEEP_K, "auc_by_model": aucs})
+
+    # fused against standalone, on the card
+    data_config = yaml.safe_load((ROOT / "configs" / "data_ppmi.yaml").read_text())
+    eval_config = yaml.safe_load(EVAL_CONFIG.read_text())
+    gaps = {}
+    for model in SWEEP_COMPARED:
+        config = yaml.safe_load(QUICKSTART.read_text())
+        config.update(ss._model_overrides(model, str(QUICKSTART)))
+        gaps[model] = sc.standalone_gaps(config, data_config, eval_config, ss.SEEDS, SWEEP_K,
+                                         sweep_dir / model)
+        print(f"  {model}: fused vs standalone run_parallel_cv by seed, max abs diff of the "
+              f"full-observation probabilities {gaps[model]}")
+
+    # the fused stacked trainer step of fusion_moddrop (S x K = 15)
+    fused_call = next(c for c in calls if c[0][1].shape[0] == len(ss.SEEDS) * SWEEP_K)
+    w_steps, w_wall, w_dev, w_n, top = trainer_window(torch, fused_call)
+    X = fused_call[0][1]
+    dims = [X.shape[-1]] + [int(layer["w"].shape[-1]) for layer in fused_call[0][0]]
+    n_par = sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
+    S_K, bs = X.shape[0], fused_call[0][8]
+    step_bytes = S_K * (n_par * 4 * 8 + bs * dims[0] * 4)  # params, grads, moments; a batch
+    step_ops = 6 * S_K * bs * sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+    t_b, t_o = step_bytes / H100_BYTES_PER_S * 1e3, step_ops / H100_F32_FLOPS * 1e3
+    a, kw = fused_call  # the window's 2 epochs again, unprofiled
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    TT.minibatch_moddrop_impl(*(a[:7] + (2,) + a[8:]), **kw)
+    torch.cuda.synchronize()
+    rec = {"steps": w_steps, "host_us_per_step": (time.perf_counter() - t0) / w_steps * 1e6,
+           "profiled_wall_us_per_step": w_wall / w_steps * 1e3,
+           "device_us_per_step": w_dev / w_steps * 1e3, "launches_per_step": w_n / w_steps,
+           "busy_share": w_dev / w_wall, "bound_ms_per_call": max(t_b, t_o),
+           "bound_by": "bytes" if t_b >= t_o else "operations"}
+    print_program(f"fused stacked step, fusion_moddrop S x K = {S_K} (widths {dims}, batch {bs})",
+                  rec)
+    print(f"    bound {rec['bound_ms_per_call']:.6f} ms a step by {rec['bound_by']}")
+    for op, ms, count in top:
+        print(f"    {ms:10.3f} ms  x{count:<6d} {op}")
+    programs[f"fused_step_SK{S_K}"] = rec
+
+    # the sequential sweeps of two models beside their fused ones, in turns
+    turns = {m: {"fused": [], "local": []} for m in SWEEP_COMPARED}
+    ap.reset_launch_counts()
+    for model in SWEEP_COMPARED:
+        for i, mode in enumerate(("fused", "local", "local", "fused")):
+            d = tmp / f"turn_{model}_{i}"
+            d.mkdir()
+            argv = base + ["--models", model] + (["--fused"] if mode == "fused" else [])
+            t0 = time.perf_counter()
+            with contextlib.chdir(d):
+                made = ss.main(argv)
+            turns[model][mode].append(time.perf_counter() - t0)
+            if mode == "local":  # the sequential runs write under the repo's runs/
+                done = sorted((RUNS_DIR / made.name).glob(f"{model}_s*/results_aggregated.yaml"))
+                shutil.rmtree(RUNS_DIR / made.name, ignore_errors=True)
+                if len(done) != len(ss.SEEDS):
+                    raise RuntimeError(f"the sequential sweep of {model}: {done}")
+        print(f"  {model}: fused {turns[model]['fused']} s, sequential --local "
+              f"{turns[model]['local']} s (fused, local, local, fused)")
+    _zero_k1(ap, launches, "sweep_in_turns")
+    paths.append({"name": "sweep_fused_vs_sequential", "turns_s": turns,
+                  "fused_vs_standalone_max_abs_diff": gaps})
+
+    # the sweep's analysis scripts on the fused sweep's 21 run directories
+    runs = _flat_runs(sweep_dir, tmp / "all_runs")
+    ap.reset_launch_counts()
+    stages = {}
+    t0 = time.perf_counter()
+    agg = aggregate_results.main(["--sweep-dir", str(tmp / "all_runs"), "--output",
+                                  str(tmp / "summary.csv")])
+    stages["aggregate_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ci_path = bootstrap_ci.main(["--sweep-dir", str(tmp / "all_runs"), "--n", str(BOOT_N)])
+    stages["bootstrap_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    summary = generate_summary.main(["--runs", *map(str, runs), "--output", str(tmp / "final")])
+    stages["summary_s"] = time.perf_counter() - t0
+    _zero_k1(ap, launches, "sweep_analysis")
+    require_files(tmp, ["summary.csv", "summary_table.csv", "summary_table.tex"],
+                  "aggregate_results")
+    require_files(tmp / "final", ["final_benchmark_summary.csv", "summary_table.tex"]
+                  + (["robustness_comparison.png"] if _has_matplotlib() else []),
+                  "generate_summary")
+    import pandas as pd
+
+    ci = pd.read_csv(ci_path)
+    n_models = len(ss.MODELS)
+    if (len(agg) != len(runs) * 6 or len(ci) != n_models * 6 or len(summary) != len(runs) * 36
+            or not (ci["CI_low"] <= ci["CI_high"]).all()):
+        raise RuntimeError(f"sweep analysis: {len(agg)} aggregate rows, {len(ci)} CI rows, "
+                           f"{len(summary)} summary rows for {len(runs)} runs")
+    _finite(ci, "summary_bootstrap_ci.csv")
+    auc_ci = ci[ci["Metric"] == "roc_auc"].set_index("Model")
+    print(f"aggregate_results, bootstrap_ci (n={BOOT_N}) and generate_summary on the "
+          f"{len(runs)} run directories: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+          + f"; ROC-AUC 95% CIs {auc_ci[['CI_low', 'CI_high']].round(4).to_dict('index')}")
+    paths.append({"name": "sweep_analysis", **stages, "runs": len(runs)})
+    boot_err = bootstrap_program(torch, programs)
+    paths[-1]["bootstrap_card_vs_cpu_max_abs"] = boot_err
+    return paths, programs, launches
+
+
+def run_stress(torch, np, ap, processed: Path, tmp: Path, launches):
+    """Phase 33: the stress test at its defaults (5 folds, 30 epochs, batch
+    128, moddrop 0.3) on phase 30's baseline table through its ``main``;
+    fold 1's MLP training card vs CPU on the same draws; one training step
+    timed. -> (path record, programs)."""
+    import pandas as pd
+
+    from pd_fusion_torch.analysis import sweep_checks as sc
+    from pd_fusion_torch.data.splits import _stratified_kfold
+    from pd_fusion_torch.nn.trainer import _step, make_optimizer
+    from pd_fusion_torch.scripts import ppmi_stress_test as st
+
+    out = tmp / "stress"
+    csv = processed / "ppmi_subject_baseline.csv"
+    ap.reset_launch_counts()
+    t0 = time.perf_counter()
+    per_fold = st.main(["--input-csv", str(csv), "--output-dir", str(out)])
+    wall = time.perf_counter() - t0
+    _zero_k1(ap, launches, "ppmi_stress_test")
+    require_files(out, ["stress_test_per_fold.csv", "stress_test_summary.csv",
+                        "ppmi_stress_test.log"]
+                  + (["stress_test_roc_auc.png", "stress_test_roc_auc.pdf"]
+                     if _has_matplotlib() else []), "ppmi_stress_test")
+    _finite(per_fold, "stress_test_per_fold.csv")
+    if len(per_fold) != 2 * 3 * 5:
+        raise RuntimeError(f"stress_test_per_fold.csv has {len(per_fold)} rows")
+    timing = dict(st.LAST_TIMINGS)
+    print(f"ppmi_stress_test (defaults: 5 folds, 30 epochs, batch 128, moddrop 0.3): wall "
+          f"{wall:.3f} s; " + ", ".join(f"{k} {v:.3f}" for k, v in timing.items()))
+    summary = pd.read_csv(out / "stress_test_summary.csv")
+    for _, row in summary.iterrows():
+        print(f"  {row['model']:12s} {row['scenario']:17s} roc_auc {row['roc_auc_mean']:.4f} +- "
+              f"{row['roc_auc_std']:.4f}")
+
+    df = pd.read_csv(csv, low_memory=False).dropna(subset=["label"])
+    groups = st.build_groups(df)
+    X = st.scaled_features(df, groups["full"])
+    col = {c: i for i, c in enumerate(groups["full"])}
+    group_idx = {g: [col[c] for c in groups[g]] for g in ("clinical", "imaging")}
+    y = df["label"].values.astype(int)
+    tr, _ = next(iter(_stratified_kfold(y, 5, 42)))
+    inputs = sc.stress_fold_inputs(X[tr], y[tr], group_idx, 42 + 1)
+    t0 = time.perf_counter()
+    w_err, p_err = sc.check_stress_training(DEV, inputs)
+    print(f"stress MLP, fold 1 ({len(tr)} x {X.shape[1]}, 30 epochs, batch 128) card vs CPU on "
+          f"the same draws: weights {w_err:.3e}, probabilities {p_err:.3e} (tolerance "
+          f"{sc.FULL_ATOL}; {time.perf_counter() - t0:.3f} s)")
+
+    a = sc._to(inputs, DEV)
+    p = [{k: v.clone().requires_grad_(True) for k, v in layer.items()} for layer in a["params"]]
+    leaves = [layer[k] for layer in p for k in ("w", "b")]
+    opt = make_optimizer(leaves, 1e-3)
+    bs = a["batch_size"]
+    idx = a["draws"][0][0, :bs].to(torch.long)
+    wb = torch.ones(bs, device=DEV)
+    keep, dk = a["draws"][1][0, 0], [d[0, 0] for d in a["draws"][2]]
+
+    def step():
+        _step(opt, leaves, st.moddrop_loss(p, a["X"][idx], a["y"][idx], wb, keep, dk,
+                                           a["clin"], a["img"]))
+
+    rec = with_event_time(torch, program_profile(torch, step), step, reps=20)
+    F = X.shape[1]
+    dims = [F + 2, *st.HIDDEN, 1]
+    n_par = sum(i * o + o for i, o in zip(dims[:-1], dims[1:]))
+    t_b = (n_par * 4 * 8 + bs * F * 4) / H100_BYTES_PER_S * 1e3
+    t_o = 6 * bs * sum(i * o for i, o in zip(dims[:-1], dims[1:])) / H100_F32_FLOPS * 1e3
+    rec.update(bound_ms_per_call=max(t_b, t_o), bound_by="bytes" if t_b >= t_o else "operations")
+    name = f"stress_mlp_step_bs{bs}_F{F}"
+    print_program(name, rec)
+    print(f"    bound {rec['bound_ms_per_call']:.6f} ms a step by {rec['bound_by']}")
+    return ({"name": "ppmi_stress_test", "wall_s": wall, "stages_s": timing,
+             "card_vs_cpu_weights": w_err, "card_vs_cpu_probs": p_err,
+             "auc": {f"{r['model']}/{r['scenario']}": r["roc_auc_mean"]
+                     for _, r in summary.iterrows()}},
+            {name: rec})
+
+
+def treeshap_chunk(torch, np, X, y, programs):
+    """One TreeSHAP chunk (``ops/treeshap.py::_shap_chunk``, 256 rows) of a
+    device GBDT with the suites' settings fitted on ``X``: device and host
+    time, launches, beside the bound."""
+    from pd_fusion_torch.analysis.tabular import SUITE_GBDT
+    from pd_fusion_torch.nn.gbdt import DeviceHistGBDT, bin_features
+    from pd_fusion_torch.ops import treeshap
+
+    model = DeviceHistGBDT(**SUITE_GBDT).fit(X, y)
+    trees = model._device_trees()
+    n = min(treeshap._CHUNK, len(X))
+    bins = torch.as_tensor(bin_features(np.asarray(X[:n], np.float32), model.edges_),
+                           device=DEV).to(torch.int64)
+    fn = lambda: treeshap._shap_chunk(trees, bins, model.max_depth, X.shape[1])  # noqa: E731
+    rec = with_event_time(torch, program_profile(torch, fn), fn, reps=3)
+    D = model.max_depth
+    L = 1 << D
+    # the dense coalition block of every tree: N x 2^D leaves x 2^D masks,
+    # D reach products and a contraction over it (about 2D + 4 operations)
+    ops = model.n_estimators * n * L * L * (2 * D + 4)
+    n_bytes = (bins.numel() * 8 + n * X.shape[1] * 4
+               + sum(v.numel() * v.element_size() for v in trees.values()))
+    t_b, t_o = n_bytes / H100_BYTES_PER_S * 1e3, ops / H100_F32_FLOPS * 1e3
+    rec.update(bound_ms_per_call=max(t_b, t_o), bound_by="bytes" if t_b >= t_o else "operations",
+               trees=model.n_estimators, depth=D, rows=n, features=X.shape[1])
+    name = f"treeshap_chunk_{n}rows_{model.n_estimators}trees_F{X.shape[1]}"
+    print_program(name, rec)
+    print(f"    bound {rec['bound_ms_per_call']:.6f} ms a chunk by {rec['bound_by']}")
+    programs[name] = rec
+
+
+def run_imaging(torch, np, yaml, ap, processed: Path, tmp: Path, launches):
+    """Phase 34: ``ppmi_imaging_upgrade`` through its ``main`` on phase 30's
+    tables: ``configs/ppmi_imaging_upgrade.yaml`` uncut (3 seeds x 5 folds x
+    4 settings x logreg/lgbm, SHAP on), the ``_progression`` and
+    ``_imaging_available`` configs at one seed each (a cut); every artifact,
+    finite metrics, each stage's wall and the TreeSHAP leg; then a GBDT
+    round of the upgrade's stacked fit and a TreeSHAP chunk profiled. ->
+    (paths, programs)."""
+    import pandas as pd
+
+    from pd_fusion_torch.data.splits import _stratified_kfold
+    from pd_fusion_torch.nn.gbdt import train_gbdt
+    from pd_fusion_torch.scripts import ppmi_imaging_upgrade as iu
+
+    paths, programs = [], {}
+    runs = [(name, keep, name.replace(".yaml", ""), {}) for name, keep in IMAGING_CONFIGS]
+    while runs:
+        name, keep, stem, extra = runs.pop(0)
+        cfg = yaml.safe_load((ROOT / "configs" / name).read_text())
+        cfg.update(baseline_csv=str(processed / "ppmi_subject_baseline.csv"),
+                   visit_csv=str(processed / "ppmi_visit_level.csv"), **extra)
+        if keep is not None:
+            print(f"depth cut: {name}'s seeds {cfg['cv']['seeds']} -> {cfg['cv']['seeds'][:keep]}")
+            cfg["cv"]["seeds"] = cfg["cv"]["seeds"][:keep]
+        path = tmp / f"{stem}.yaml"
+        path.write_text(yaml.safe_dump(cfg, sort_keys=False))
+        out = tmp / stem
+        ap.reset_launch_counts()
+        t0 = time.perf_counter()
+        per_fold = iu.main(["--config", str(path), "--out-dir", str(out)])
+        wall = time.perf_counter() - t0
+        _zero_k1(ap, launches, stem)
+        summary = pd.read_csv(out / "summary_mean.csv")
+        winner = summary.sort_values("roc_auc_mean", ascending=False).iloc[0]
+        require_files(out, list(IMAGING_ARTIFACTS)
+                      + (list(IMAGING_PLOTS) if _has_matplotlib() else [])
+                      + (["shap_summary.csv"] if winner["model"] == "lgbm" else []), stem)
+        _finite(per_fold, f"{stem} per_fold_metrics.csv")
+        n_rows = (len(cfg["cv"]["seeds"]) * 4 * int(cfg["cv"]["folds"])
+                  * len(cfg.get("models", ["logreg", "lgbm"])))
+        if len(per_fold) != n_rows:
+            raise RuntimeError(f"{stem}: {len(per_fold)} fold rows, expected {n_rows}")
+        timing, shap = dict(iu.LAST_TIMINGS), dict(iu.LAST_SHAP)
+        cohort = pd.read_csv(out / "predictions.csv")["subject_id"].nunique()
+        print(f"{stem} ({len(cfg['cv']['seeds'])} seeds x {cfg['cv']['folds']} folds x 4 settings "
+              f"x {cfg.get('models', ['logreg', 'lgbm'])}, {cohort} subjects): wall {wall:.3f} s; "
+              + ", ".join(f"{k} {v:.3f}" for k, v in timing.items())
+              + f"; winner {winner['setting']}/{winner['model']} roc_auc_mean "
+              f"{winner['roc_auc_mean']:.4f}; SHAP leg {shap or 'skipped (logistic winner)'}")
+        for _, row in summary.iterrows():
+            print(f"  {row['model']:6s} {row['setting']:24s} roc_auc {row['roc_auc_mean']:.4f} +- "
+                  f"{row['roc_auc_std']:.4f}")
+        paths.append({"name": stem, "wall_s": wall, "stages_s": timing, "shap": shap,
+                      "subjects": int(cohort), "winner": f"{winner['setting']}/{winner['model']}",
+                      "winner_auc": float(winner["roc_auc_mean"])})
+        if not runs and not any(p["shap"] for p in paths) and not extra:
+            # every winner was logistic: the TreeSHAP leg runs on a tree-only
+            # run of the uncut config's settings at one seed (a cut)
+            print("the logistic fits won every run: the TreeSHAP leg runs once more with "
+                  "models: [lgbm] (as the JAX package's SHAP test), one seed")
+            runs.append((IMAGING_CONFIGS[0][0], 1, "ppmi_imaging_upgrade_tree_shap",
+                         {"models": ["lgbm"]}))
+    if not any(p["shap"] for p in paths):
+        raise RuntimeError("the imaging upgrade's TreeSHAP leg did not run")
+
+    # the device programs of the uncut config at seed 42: its stacked GBDT
+    # fit (every setting's folds, prepared as the script prepares them:
+    # residualized on train, then imputed with indicators) and a TreeSHAP
+    # chunk of the widest setting (the fusion of non-motor and imaging
+    # columns)
+    import logging
+
+    cfg = yaml.safe_load((ROOT / "configs" / IMAGING_CONFIGS[0][0]).read_text())
+    cov = {k: cfg["covariates"].get(k, []) for k in ("numeric", "categorical")}
+    harm = {"method": cfg["harmonization"]["method"],
+            "site_cols": cfg["harmonization"]["site_cols"]}
+    run_dir = tmp / IMAGING_CONFIGS[0][0].replace(".yaml", "")
+    imaging = json.loads((run_dir / "imaging_columns.json").read_text())
+    kept = json.loads((run_dir / "kept_dropped_columns.json").read_text())
+    base = pd.read_csv(processed / "ppmi_subject_baseline.csv", low_memory=False)
+    base["subject_id"] = base["subject_id"].astype(str)
+    base, _ = iu.with_asymmetry(base.dropna(subset=["label"]),
+                                [c for c in imaging["datsbr"] if not c.endswith("_ASYM")])
+    imaging_cols = set(imaging["datsbr"] + imaging["mri"])
+    splits = list(_stratified_kfold(base["label"].values, 5, 42))
+    parts = {}
+    for setting, cols in ((k, v["kept"]) for k, v in kept.items() if v["kept"]):
+        parts[setting] = []
+        for tr, te in splits:
+            tr_df, _, _, unscaled = iu.prepare_setting_fold(
+                base.iloc[tr].copy(), base.iloc[te].copy(), cols,
+                [c for c in cols if c in imaging_cols], cov, harm, logging.getLogger("chip_smoke"))
+            parts[setting].append((unscaled.transform(tr_df), tr_df["label"].values))
+    stacked = [p for ps in parts.values() for p in ps]
+    rounds = 20
+    args, hp, bound, (K, n_max, f_max) = stacked_gbdt_round(
+        torch, np, [p[0] for p in stacked], [p[1] for p in stacked], rounds)
+    rec = with_event_time(torch, program_profile(torch, lambda: train_gbdt(*args, **hp),
+                                                 steps=rounds),
+                          lambda: train_gbdt(*args, **hp), reps=3)
+    rec.update(bound_ms_per_call=bound[0], bound_by=bound[1], rounds_a_call=rounds)
+    name = f"imaging_gbdt_round_K{K}_n{n_max}_f{f_max}"
+    print_program(name + f" ({len(parts)} settings x 5 folds, widths "
+                  f"{ {k: v[0][0].shape[1] for k, v in parts.items()} })", rec)
+    print(f"    bound {bound[0]:.6f} ms a call of {rounds} rounds by {bound[1]}")
+    programs[name] = rec
+    X, y = parts["fusion_nonmotor_imaging"][0]
+    treeshap_chunk(torch, np, X, y, programs)
+    return paths, programs
+
+
+def run_submitters_dry(tmp: Path):
+    """Phase 35: both submitters' ``--dry-run`` through their ``main`` with
+    ``subprocess.run`` refusing: the SLURM scripts they write. -> path
+    record."""
+    import subprocess
+    from unittest import mock
+
+    from pd_fusion_torch.scripts import submit_dual_h200, submit_sweep
+
+    def refuse(cmd, *a, **kw):
+        raise RuntimeError(f"a dry run tried to run {cmd}")
+
+    tmp.mkdir()
+    with contextlib.chdir(tmp), mock.patch.object(subprocess, "run", refuse):
+        sweep = tmp / submit_sweep.main(["--dry-run", "--synthetic", "--k-fold", str(SWEEP_K)])
+        dual = tmp / submit_dual_h200.main(["--dry-run", "--dataset", "ppmi", "--synthetic",
+                                            "--k-fold", str(SWEEP_K)])
+    scripts = sorted((sweep / "scripts").glob("*.sh"))
+    texts = [p.read_text() for p in scripts]
+    want = len(submit_sweep.MODELS) * len(submit_sweep.SEEDS)
+    if len(scripts) != want or not all(
+            "#SBATCH --partition=gpu\n#SBATCH --gres=gpu:1\n" in t
+            and "python -m pd_fusion_torch.cli run" in t and f"--k-fold {SWEEP_K}" in t
+            for t in texts):
+        raise RuntimeError(f"submit_sweep --dry-run wrote {len(scripts)} scripts, not {want} "
+                           "asking for a card")
+    jobs = sorted((dual / "scripts").glob("*.sh"))
+    joined = "".join(p.read_text() for p in jobs)
+    runs = len(submit_dual_h200.MODELS) * len(submit_dual_h200.SEEDS)
+    if len(jobs) != 2 or joined.count("python -m pd_fusion_torch.cli run") != runs or \
+            joined.count("#SBATCH --gres=gpu:1") != 2:
+        raise RuntimeError(f"submit_dual_h200 --dry-run wrote {len(jobs)} jobs")
+    print(f"submit_sweep --dry-run: {len(scripts)} SLURM scripts (partition gpu, one card each); "
+          f"submit_dual_h200 --dry-run: {len(jobs)} jobs holding {runs} runs; nothing submitted")
+    return {"name": "submitters_dry_run", "sweep_scripts": len(scripts), "dual_jobs": len(jobs)}
 
 
 def _tensors(tree, prefix=""):
@@ -2627,8 +3211,10 @@ def main() -> int:
           f"{'present' if importlib.util.find_spec('pyarrow') else 'absent'}")
 
     # phases 14-19: the imaging embed path, then the MIL CV on its bags;
-    # phases 20-22: the MIL fine-tune on the same volumes
+    # phases 20-22: the MIL fine-tune on the same volumes; the volumes and
+    # bags stay until phase 31, phase 30's tables until phase 34
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_embed_"))
+    tmp_ppmi = Path(tempfile.mkdtemp(prefix="chip_smoke_ppmi_"))
     try:
         embed_paths, embed_programs, built_launches, manifest = run_embed_path(
             torch, np, yaml, ap, cli, tmp)
@@ -2637,29 +3223,63 @@ def main() -> int:
         # a dev dataset
         vol_paths, vol_programs, vol_launches = run_volume_path(torch, np, yaml, ap, cli, tmp,
                                                                 manifest)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    paths += embed_paths + ft_paths + vol_paths
-    programs.update(embed_programs, **ft_programs, **vol_programs)
+        paths += embed_paths + ft_paths + vol_paths
+        programs.update(embed_programs, **ft_programs, **vol_programs)
 
-    # phases 28-30: download-dev; the suites' device programs card vs CPU;
-    # the PPMI study-data path
-    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ppmi_"))
-    try:
+        # phases 28-30: download-dev; the suites' device programs card vs
+        # CPU; the PPMI study-data path
         t_new = time.perf_counter()
-        dl_path, dl_launches = run_download_dev(ap, cli, tmp)
+        dl_path, dl_launches = run_download_dev(ap, cli, tmp_ppmi)
         paths.append(dl_path)
         checks_rec = run_tabular_checks(torch)
-        study_paths, study_progs, study_launches = run_study_path(torch, np, yaml, ap, tmp)
+        study_paths, study_progs, study_launches = run_study_path(torch, np, yaml, ap, tmp_ppmi)
         print(f"phases 28-30: {time.perf_counter() - t_new:.3f} s")
+        paths += study_paths
+        paths.append({"name": "ppmi_card_vs_cpu_checks", **checks_rec})
+        programs.update(study_progs)
+        vol_launches.update(study_launches, download_dev=dl_launches)
+
+        # phase 31: the fused MIL sweep on phase 16's bags
+        t_new = time.perf_counter()
+        mil_sweep_path, mil_sweep_launches = run_mil_sweep(yaml, ap, tmp, manifest)
+        paths.append(mil_sweep_path)
+        # phase 32: the fused tabular sweep, its sequential twin in turns, the
+        # sweep's analysis scripts and the bootstrap program
+        sweep_tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_sweep_"))
+        try:
+            sweep_paths, sweep_progs, sweep_launches = run_sweep_tier(torch, np, yaml, ap,
+                                                                       sweep_tmp)
+        finally:
+            shutil.rmtree(sweep_tmp, ignore_errors=True)
+        paths += sweep_paths
+        programs.update(sweep_progs)
+        vol_launches.update(sweep_launches)
+        # phases 33-34: the stress test and the imaging upgrade on phase 30's tables
+        processed = tmp_ppmi / "ppmi" / "processed"
+        stress_path, stress_progs = run_stress(torch, np, ap, processed, tmp_ppmi, vol_launches)
+        paths.append(stress_path)
+        programs.update(stress_progs)
+        imaging_paths, imaging_progs = run_imaging(torch, np, yaml, ap, processed, tmp_ppmi,
+                                                   vol_launches)
+        paths += imaging_paths
+        programs.update(imaging_progs)
+        if "sklearn" in sys.modules:
+            raise RuntimeError("the sweep tier or the PPMI analyses imported scikit-learn")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    paths += study_paths
-    paths.append({"name": "ppmi_card_vs_cpu_checks", **checks_rec})
-    programs.update(study_progs)
-    vol_launches.update(study_launches, download_dev=dl_launches)
+        shutil.rmtree(tmp_ppmi, ignore_errors=True)
 
-    # phase 31: the record (times at the training step's shape, and at B=80)
+    # phase 35: both submitters' dry runs
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_submit_"))
+    try:
+        ap.reset_launch_counts()
+        paths.append(run_submitters_dry(tmp / "work"))
+        _zero_k1(ap, vol_launches, "submitters_dry_run")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phases 31-35: {time.perf_counter() - t_new:.3f} s")
+
+    # phase 36: the record (times at the training step's shape, and at B=80)
     print(json.dumps({"programs": [
         {"name": name, **{k: v for k, v in rec.items() if k != "prof"}}
         for name, rec in programs.items()]}))
@@ -2669,10 +3289,11 @@ def main() -> int:
         "route": "cuda",
         "source": "src/pd_fusion_torch/csrc/attention_pool.cu",
         "replaces": "src/pd_fusion/ops/pallas_mil.py:26",
-        "launches": res["launches"] + built_launches + ft_launches + sum(
+        "launches": res["launches"] + built_launches + ft_launches + mil_sweep_launches + sum(
             k1["kernel"] for k1 in vol_launches.values()),
         "launches_by_path": {"mil_cv_synthetic_bags": res["launches"],
                              "mil_cv_built_bags": built_launches, "mil_ft_cv": ft_launches,
+                             "mil_fused_sweep": mil_sweep_launches,
                              **{name: k1["kernel"] for name, k1 in vol_launches.items()}},
         "max_abs_err": max_err,
         "ms": t["kernel_ms"],

@@ -87,10 +87,13 @@ class StandardScaling:
 
 
 class NumericBlock:
-    """Median impute with missing indicators, then optional scaling."""
+    """Median impute with missing indicators (``add_indicator``), then
+    optional scaling. Without indicators the imputed matrix keeps the
+    frame's layout, as scikit-learn's imputer returns it."""
 
-    def __init__(self, scale: bool):
+    def __init__(self, scale: bool, add_indicator: bool = True):
         self.scale = scale
+        self.add_indicator = add_indicator
         self.scaler: Optional[StandardScaling] = None
 
     def _impute(self, X: np.ndarray) -> np.ndarray:
@@ -102,6 +105,8 @@ class NumericBlock:
             mask_valid = mask
         values = np.repeat(self.statistics[self.valid], np.sum(mask_valid, axis=0))
         X[np.where(mask_valid.transpose())[::-1]] = values
+        if not self.add_indicator:
+            return X
         # the indicator block as MissingIndicator makes it (the whole mask
         # when every column had a NaN, an empty block when none had), always
         # stacked on: the stacked array's layout is the scaler's input layout

@@ -16,9 +16,13 @@ Parity with the JAX package, term for term:
 - ECE compares against the f64 ``np.linspace`` lower boundaries rounded
   DOWN to f32 (``_lower_bin_bounds_f32``);
 - degenerate inputs give NaN (0/0), never a guarded 1e-38;
-- ECE's bin sums are ``index_add_``, which on a CUDA device adds in no
+- ECE's bin sums are ``scatter_add``, which on a CUDA device adds in no
   fixed order: its result may differ from the CPU's in the last bits
   (well inside the 1e-6 the tests hold it to).
+
+Every metric reduces over the last axis: ``y_prob`` [..., N] gives one
+value per leading index (``analysis/bootstrap_ci.py`` computes all its
+resamples' metrics so, [n_boot, N] in one call).
 """
 from functools import lru_cache
 from typing import Dict, Optional
@@ -89,38 +93,39 @@ def roc_auc(y_true: Tensor, y_prob: Tensor, weights: Optional[Tensor] = None) ->
 
 
 def average_precision(y_true: Tensor, y_prob: Tensor, weights: Optional[Tensor] = None) -> Tensor:
-    """Weighted average precision (sklearn ``average_precision_score``)."""
+    """Weighted average precision (sklearn ``average_precision_score``),
+    over the last axis."""
     w = _ones_like_weights(y_prob, weights)
     y = y_true.to(y_prob.dtype)
-    order = torch.argsort(-y_prob, stable=True)
-    s = y_prob[order]
-    yw = (y * w)[order]
-    nw = ((1.0 - y) * w)[order]
+    order = torch.argsort(-y_prob, dim=-1, stable=True)
+    s = torch.gather(y_prob, -1, order)
+    yw = torch.gather((y * w).expand_as(y_prob), -1, order)
+    nw = torch.gather(((1.0 - y) * w).expand_as(y_prob), -1, order)
 
     _, group_end = _tie_group_bounds(s)
-    tps = torch.cumsum(yw, 0)
-    fps = torch.cumsum(nw, 0)
-    tp_end = tps[group_end]
-    denom = tp_end + fps[group_end]
+    tps = torch.cumsum(yw, -1)
+    fps = torch.cumsum(nw, -1)
+    tp_end = torch.gather(tps, -1, group_end)
+    denom = tp_end + torch.gather(fps, -1, group_end)
     safe = torch.where(denom > 0, denom, 1.0)
     precision_at_end = torch.where(denom > 0, tp_end / safe, 0.0)
-    return torch.sum(yw * precision_at_end) / torch.sum(yw)
+    return torch.sum(yw * precision_at_end, -1) / torch.sum(yw, -1)
 
 
 def brier_score(y_true: Tensor, y_prob: Tensor, weights: Optional[Tensor] = None) -> Tensor:
     w = _ones_like_weights(y_prob, weights)
     sq = (y_prob - y_true.to(y_prob.dtype)) ** 2
-    return torch.sum(sq * w) / torch.sum(w)
+    return torch.sum(sq * w, -1) / torch.sum(w, -1)
 
 
 def _confusion(y_true, y_prob, weights, threshold):
     w = _ones_like_weights(y_prob, weights)
     y = y_true.to(y_prob.dtype)
     pred = (y_prob >= threshold).to(y_prob.dtype)
-    tp = torch.sum(w * y * pred)
-    fn = torch.sum(w * y * (1.0 - pred))
-    tn = torch.sum(w * (1.0 - y) * (1.0 - pred))
-    fp = torch.sum(w * (1.0 - y) * pred)
+    tp = torch.sum(w * y * pred, -1)
+    fn = torch.sum(w * y * (1.0 - pred), -1)
+    tn = torch.sum(w * (1.0 - y) * (1.0 - pred), -1)
+    fp = torch.sum(w * (1.0 - y) * pred, -1)
     return tp, fn, tn, fp
 
 
@@ -159,27 +164,27 @@ def expected_calibration_error(
     (p == 0 falls in no bin) against the f64 linspace boundaries, bin
     accuracy = fraction where ``y == (p >= 0.5)``, divided by the FULL
     weight."""
-    w = _ones_like_weights(y_prob, weights)
+    w = _ones_like_weights(y_prob, weights).expand_as(y_prob)
     y = y_true.to(y_prob.dtype)
     bounds = torch.tensor(_lower_bin_bounds_f32(n_bins), device=y_prob.device)
-    idx = torch.sum(y_prob[:, None] > bounds[None, :], dim=1) - 1
+    idx = torch.sum(y_prob[..., None] > bounds, dim=-1) - 1
     valid = (y_prob > 0.0) & (y_prob <= 1.0)
     idx = torch.clamp(idx, 0, n_bins - 1)
     wv = torch.where(valid, w, 0.0)
 
     acc = (y == (y_prob >= 0.5).to(y_prob.dtype)).to(y_prob.dtype)
-    zeros = torch.zeros(n_bins, dtype=y_prob.dtype, device=y_prob.device)
-    bin_w = zeros.index_add(0, idx, wv)
-    bin_acc = zeros.index_add(0, idx, wv * acc)
-    bin_conf = zeros.index_add(0, idx, wv * y_prob)
+    zeros = torch.zeros(y_prob.shape[:-1] + (n_bins,), dtype=y_prob.dtype, device=y_prob.device)
+    bin_w = zeros.scatter_add(-1, idx, wv)
+    bin_acc = zeros.scatter_add(-1, idx, wv * acc)
+    bin_conf = zeros.scatter_add(-1, idx, wv * y_prob)
 
-    total_w = torch.sum(w)
+    total_w = torch.sum(w, -1, keepdim=True)
     nonzero = bin_w > 0
     safe_w = torch.where(nonzero, bin_w, 1.0)
     per_bin = torch.where(
         nonzero, (bin_w / total_w) * torch.abs(bin_acc / safe_w - bin_conf / safe_w), 0.0
     )
-    return torch.sum(per_bin)
+    return torch.sum(per_bin, -1)
 
 
 # canonical metric order for packed single-transfer layouts (must match
@@ -193,7 +198,8 @@ def binary_metrics(
     weights: Optional[Tensor] = None,
     threshold: float = 0.5,
 ) -> Dict[str, Tensor]:
-    """All six metrics, as 0-d tensors on the inputs' device."""
+    """All six metrics over the last axis, as tensors of the leading shape
+    (0-d for one vector) on the inputs' device."""
     return {
         "roc_auc": roc_auc(y_true, y_prob, weights),
         "pr_auc": average_precision(y_true, y_prob, weights),

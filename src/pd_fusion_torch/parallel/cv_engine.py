@@ -29,6 +29,10 @@ packed into one buffer and fetched once. Calibration runs on the device
 calibration set is larger than ``MAX_DEVICE_N`` or
 ``PD_FUSION_HOST_ISOTONIC=1``; then, and always for MIL, it is the host
 fit per fold. ``isotonic_arms`` counts which arm each calibrated run took.
+
+``run_parallel_cv`` also takes each fold's masks and generators
+explicitly (``fold_masks``, ``fold_generators``): the fused multi-seed
+sweep (``parallel/seed_sweep.py``) stacks several seeds' folds that way.
 """
 import logging
 import os
@@ -84,8 +88,19 @@ def supports_parallel_cv(config) -> bool:
 _metrics_from_probs_packed = dev_metrics.binary_metrics_packed
 
 
-def run_parallel_cv(config, df, masks, folds, eval_config):
+def run_parallel_cv(config, df, masks, folds, eval_config, fold_masks=None,
+                    fold_generators=None):
     """Train + evaluate all folds.
+
+    ``fold_masks`` optionally gives each fold's (train_masks, val_masks)
+    dicts (the fused multi-seed sweep's folds come from different seeds'
+    frames and masks); by default they are sliced from ``masks``.
+
+    ``fold_generators`` optionally gives each fold's (init, train)
+    generator pair, the train generator on the device (the fused sweep
+    draws them from each fold's own seed chain); by default they are drawn
+    from the global chain here. The MoE branch takes only the init
+    generator of a pair, as the JAX engine takes only the first key.
 
     Returns (metrics_all, fold_preds):
       metrics_all: list of per-fold {scenario: {metric: float}} dicts
@@ -102,6 +117,8 @@ def run_parallel_cv(config, df, masks, folds, eval_config):
     nested = do_calibrate and bool(config.get("nested_calibration", False))
     calib_dfs: List = [None] * K
     if nested:
+        if fold_masks is not None:
+            raise ValueError("nested calibration is not supported with explicit fold_masks")
         from pd_fusion_torch.data.splits import split_train_calibration
 
         seed = config.get("seed", 42)
@@ -117,7 +134,8 @@ def run_parallel_cv(config, df, masks, folds, eval_config):
 
     run = {"mil_attention": _run_parallel_cv_mil, "unimodal_gbdt": _run_parallel_cv_gbdt,
            "moe": _run_parallel_cv_moe}.get(model_type, _run_parallel_cv_mlp)
-    return run(config, folds, masks, scenarios, group_col, calib_dfs, do_calibrate, nested)
+    return run(config, folds, masks, scenarios, group_col, calib_dfs, do_calibrate, nested,
+               fold_masks, fold_generators)
 
 
 # ---------------------------------------------------------------------------
@@ -136,6 +154,14 @@ def _pad_stack(arrays: List[np.ndarray], pad_value=0.0) -> Tuple[np.ndarray, np.
         out[i, : a.shape[0]] = a
         w[i, : a.shape[0]] = 1.0
     return out, w
+
+
+def _split_masks(masks, fold_masks, fi, train_df, val_df):
+    """Fold ``fi``'s (train_masks, val_masks): the explicit pair, or sliced
+    from the frame's masks by index."""
+    if fold_masks is not None:
+        return fold_masks[fi]
+    return get_subset_masks(masks, train_df.index), get_subset_masks(masks, val_df.index)
 
 
 def _eval_targets(yva_list, S):
@@ -246,6 +272,15 @@ def _fold_results(packed, scenarios, group_col, val_dfs, yva_list):
 # ---------------------------------------------------------------------------
 
 
+def _fold_gens(fold_generators, K, device):
+    """Each fold's (init, train) generators: the explicit pairs, else
+    interleaved draws per fold from the global chain (the sequential fold
+    loop's order on it)."""
+    if fold_generators is not None:
+        return list(fold_generators)
+    return [(fresh_generator(), fresh_generator(device)) for _ in range(K)]
+
+
 def _stack_params(param_list):
     """K single-model params -> one fold-stacked params list."""
     return [{k: torch.stack([p[li][k] for p in param_list]) for k in param_list[0][li]}
@@ -282,7 +317,7 @@ def _probs_with_calib(trained, Xs, Xc):
 
 
 def _run_parallel_cv_mlp(config, folds, masks, scenarios, group_col, calib_dfs,
-                         do_calibrate, nested):
+                         do_calibrate, nested, fold_masks, fold_generators):
     from pd_fusion_torch.models.fusion_moddrop import _assignment_matrix
     from pd_fusion_torch.nn.trainer import fullbatch_impl, minibatch_moddrop_impl
 
@@ -306,8 +341,7 @@ def _run_parallel_cv_mlp(config, folds, masks, scenarios, group_col, calib_dfs,
     Xtr_list, ytr_list, Xva_scen_list, yva_list = [], [], [], []
     Xcal_list, ycal_list = [], []  # calibration-set inputs (do_calibrate only)
     for fi, (train_df, val_df) in enumerate(folds):
-        train_masks = get_subset_masks(masks, train_df.index)
-        val_masks = get_subset_masks(masks, val_df.index)
+        train_masks, val_masks = _split_masks(masks, fold_masks, fi, train_df, val_df)
         X_tr, _, scaler = preprocess_features(train_df, feat_cols)
         X_va_raw, _, _ = preprocess_features(val_df, feat_cols, None, scaler)
         if masked:
@@ -350,9 +384,7 @@ def _run_parallel_cv_mlp(config, folds, masks, scenarios, group_col, calib_dfs,
     X_stack, w_tr = _pad_stack(Xtr_list)
     y_stack = _pad_stack([y[:, None] for y in ytr_list])[0][..., 0]
     dims = [X_stack.shape[-1], *params_cfg["hidden_dims"], 1]
-    # interleaved (init, train) draws per fold: the sequential fold loop's
-    # order on the global chain
-    gens = [(fresh_generator(), fresh_generator(device)) for _ in range(K)]
+    gens = _fold_gens(fold_generators, K, device)
     params_stack = _init_folds_mlp([g for g, _ in gens], dims, device)
     train_gens = [g for _, g in gens]
 
@@ -422,7 +454,7 @@ def _moe_prep_fold(train_df, val_df, cal_df):
 
 
 def _run_parallel_cv_moe(config, folds, masks, scenarios, group_col, calib_dfs,
-                         do_calibrate, nested):
+                         do_calibrate, nested, fold_masks, fold_generators):
     """Stacked MoE CV: [K, M, N, Fmax] inputs, one fold-batched trainer.
     Scenario inputs zero the masked modalities' blocks (the sequential
     ``predict_for_masks``); calibration inputs are the un-zeroed matrices
@@ -465,11 +497,11 @@ def _run_parallel_cv_moe(config, folds, masks, scenarios, group_col, calib_dfs,
     m_va = np.zeros((K, S, n_va_max, M), np.float32)
     for i, ((train_df, val_df), (Xd_tr, Xd_va, _, _)) in enumerate(zip(folds, fold_data)):
         n_i, nv = len(ytr_list[i]), len(yva_list[i])
+        train_masks, val_masks = _split_masks(masks, fold_masks, i, train_df, val_df)
         x_tr[i, :, :n_i] = stack_dict(Xd_tr, n_i)
-        m_tr[i, :n_i] = mask_matrix(get_subset_masks(masks, train_df.index))
+        m_tr[i, :n_i] = mask_matrix(train_masks)
         y_tr[i, :n_i] = ytr_list[i]
         w_tr[i, :n_i] = 1.0
-        val_masks = get_subset_masks(masks, val_df.index)
         for si, scenario in enumerate(scenarios):
             mm = mask_matrix(apply_missingness_scenario(val_df, scenario, val_masks))
             # per-modality zeroing of the masked inputs
@@ -477,8 +509,11 @@ def _run_parallel_cv_moe(config, folds, masks, scenarios, group_col, calib_dfs,
             m_va[i, si, :nv] = mm
     yv_rep, wv_rep = _eval_targets(yva_list, S)
 
-    # one init generator per fold (MoE training draws nothing)
-    params_stack = _init_folds_moe([fresh_generator() for _ in range(K)], dims,
+    # one init generator per fold (MoE training draws nothing); of an
+    # explicit pair only the first, as the JAX engine's first key
+    init_gens = [fold_generators[i][0] if fold_generators is not None else fresh_generator()
+                 for i in range(K)]
+    params_stack = _init_folds_moe(init_gens, dims,
                                    params_cfg["expert_hidden_dims"],
                                    params_cfg["router_hidden_dims"], device)
     t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
@@ -496,7 +531,9 @@ def _run_parallel_cv_moe(config, folds, masks, scenarios, group_col, calib_dfs,
                 nc = len(ycal_list[i])
                 cal_df = calib_dfs[i] if nested else val_df
                 x_cal[i, :, :nc] = stack_dict(Xd_cal if nested else Xd_va, nc)
-                m_cal[i, :nc] = mask_matrix(get_subset_masks(masks, cal_df.index))
+                m_cal[i, :nc] = mask_matrix(
+                    get_subset_masks(masks, cal_df.index) if nested
+                    else _split_masks(masks, fold_masks, i, folds[i][0], val_df)[1])
             probs_cal = moe_apply(trained, t(x_cal), t(m_cal))
             packed = _calibrated_pack(probs_scen, probs_cal, ycal_list, t(yv_rep), t(wv_rep))
         else:
@@ -511,7 +548,7 @@ def _run_parallel_cv_moe(config, folds, masks, scenarios, group_col, calib_dfs,
 
 
 def _run_parallel_cv_gbdt(config, folds, masks, scenarios, group_col, calib_dfs,
-                          do_calibrate, nested):
+                          do_calibrate, nested, fold_masks, fold_generators):
     """Stacked device-GBDT CV: per-fold host binning (quantile edges fit on
     each fold's own scaled train matrix, as the sequential
     ``DeviceHistGBDT.fit``), then every fold's ensemble grows at once and
@@ -542,7 +579,7 @@ def _run_parallel_cv_gbdt(config, folds, masks, scenarios, group_col, calib_dfs,
     bins_tr_list, y_tr_list, bases = [], [], []
     bins_scen_list, yva_list, bins_cal_list, ycal_list = [], [], [], []
     for fi, (train_df, val_df) in enumerate(folds):
-        val_masks = get_subset_masks(masks, val_df.index)
+        val_masks = _split_masks(masks, fold_masks, fi, train_df, val_df)[1]
         X_tr, _, scaler = preprocess_features(train_df, feat_cols)
         X_va_raw, _, _ = preprocess_features(val_df, feat_cols, None, scaler)
         X_tr = X_tr.astype(np.float32)
@@ -672,7 +709,7 @@ def _train_predict_folds(arrays, gens, hp, device):
 
 
 def _run_parallel_cv_mil(config, folds, masks, scenarios, group_col, calib_dfs,
-                         do_calibrate, nested):
+                         do_calibrate, nested, fold_masks, fold_generators):
     device = get_device()
     params_cfg = config["params"]
     mil_col = config.get("mil_column", "mri_mil")
@@ -687,7 +724,7 @@ def _run_parallel_cv_mil(config, folds, masks, scenarios, group_col, calib_dfs,
     fold_rows = []
     bag_dims, bag_lens, tr_lens = set(), [], []
     for fi, (train_df, val_df) in enumerate(folds):
-        val_masks = get_subset_masks(masks, val_df.index)
+        val_masks = _split_masks(masks, fold_masks, fi, train_df, val_df)[1]
         bags_tr = train_df[mil_col].tolist()
         keep_tr = [j for j, b in enumerate(bags_tr) if b is not None]
         bags_va = val_df[mil_col].tolist()
@@ -807,9 +844,7 @@ def _run_parallel_cv_mil(config, folds, masks, scenarios, group_col, calib_dfs,
         Wt = np.zeros((K, 1), np.float32)
         VT = np.zeros((K, 1), np.float32)
 
-    # interleaved (init, train) draws per fold = the sequential loop's
-    # consumption order of the global chain
-    gens = [(fresh_generator(), fresh_generator(device)) for _ in range(K)]
+    gens = _fold_gens(fold_generators, K, device)
 
     hp = {
         "input_dim": input_dim,

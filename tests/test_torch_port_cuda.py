@@ -21,8 +21,10 @@ width, frozen and not, card against CPU),
 card against CPU), ``pd_fusion_torch/nn/cnn3d_checks.py`` (one CNN3D
 training step, card against CPU) and
 ``pd_fusion_torch/analysis/tabular_checks.py`` (the PPMI suites' logistic
-fit, AUC screen, permutation probes and stacked GBDT fit), which
-``chip_smoke.py`` runs too.
+fit, AUC screen, permutation probes and stacked GBDT fit) and
+``pd_fusion_torch/analysis/sweep_checks.py`` (the bootstrap program, the
+stress test's MLP training, the fused sweep against standalone runs),
+which ``chip_smoke.py`` runs too.
 """
 import pytest
 import torch
@@ -226,3 +228,40 @@ def test_stacked_gbdt_fit_on_the_card_equals_each_models_own_fit(cuda):
     from pd_fusion_torch.analysis import tabular_checks
 
     tabular_checks.check_gbdt_stack(cuda, K=3, n=300, f=20, rounds=20)
+
+
+def test_bootstrap_program_on_the_card_matches_the_cpu(cuda):
+    from pd_fusion_torch.analysis import sweep_checks
+
+    sweep_checks.check_bootstrap(cuda)
+
+
+def test_stress_mlp_training_on_the_card_matches_the_cpu(cuda):
+    from pd_fusion_torch.analysis import sweep_checks
+
+    sweep_checks.check_stress_training(cuda, sweep_checks.stress_inputs(n=400, F=60, epochs=5))
+
+
+@pytest.mark.parametrize("model_type,params,atol", [
+    ("fusion_moddrop", {"hidden_dims": [64, 32], "dropout": 0.2, "lr": 0.001, "batch_size": 32,
+                        "epochs": 10, "moddrop_rate": 0.3}, trainer_checks.FULL_ATOL[1]),
+    ("unimodal_gbdt", {"backend": "device", "n_estimators": 20, "max_depth": 5}, 5e-3),
+], ids=["fusion_moddrop", "unimodal_gbdt-device"])
+def test_fused_sweep_on_the_card_matches_standalone_runs(cuda, tmp_path, monkeypatch, model_type,
+                                                          params, atol):
+    """Equal folds (N=500, k=5): the fused S x K stack against each seed's
+    standalone run on the card (rounding of S x K against K batch entries;
+    the GBDT's exact-gain-tie note of ``tests/test_seed_sweep.py``)."""
+    from pd_fusion_torch.analysis import sweep_checks
+    from pd_fusion_torch.parallel.seed_sweep import run_multi_seed_cv
+    from pd_fusion_torch.utils.io import load_yaml
+
+    monkeypatch.setenv("PD_FUSION_TORCH_DEVICE", "cuda")
+    config = load_yaml("configs/quickstart.yaml")
+    config.update(model_type=model_type, params=params, modality="clinical")
+    data_config = load_yaml("configs/data_ppmi.yaml")
+    eval_config = load_yaml("configs/eval_missingness.yaml")
+    run_multi_seed_cv(dict(config), data_config, eval_config, seeds=[42, 43], k=5,
+                      synthetic=True, sweep_dir=tmp_path)
+    gaps = sweep_checks.standalone_gaps(config, data_config, eval_config, [42, 43], 5, tmp_path)
+    assert max(gaps.values()) <= atol, gaps

@@ -46,6 +46,12 @@ STUDY_MODULES = ("data.download", "data.download.uci_download", "data.download.o
                  "nn.logreg", "scripts._cli_common", "scripts.ppmi_build_dataset",
                  "scripts.ppmi_train_tabular", "scripts.ppmi_eval_report",
                  "scripts.ppmi_meaningful_suite")
+# the sweep tier, the stress test, the imaging upgrade and the torch helpers
+SWEEP_MODULES = ("parallel.seed_sweep", "analysis.aggregate_results", "analysis.bootstrap_ci",
+                 "analysis.generate_summary", "analysis.sweep_checks", "scripts.submit_sweep",
+                 "scripts.submit_dual_h200", "scripts.ppmi_stress_test",
+                 "scripts.ppmi_imaging_upgrade", "utils.torch_utils",
+                 "scripts.export_backbone_weights", "scripts.verify_loaders")
 
 
 def test_port_imports_without_jax_or_jax_package():
@@ -56,10 +62,11 @@ def test_port_imports_without_jax_or_jax_package():
     ).stdout.strip()
     count, rest = out.split(maxsplit=1)
     bad, names = rest.split("] ", 1)
-    assert int(count) >= 71  # every module of the port was imported
+    assert int(count) >= 83  # every module of the port was imported
     assert bad + "]" == "[]"
     assert ({f"pd_fusion_torch.{m}"
-             for m in SLICE_MODULES + EMBED_MODULES + FT_MODULES + VOLUME_MODULES + STUDY_MODULES}
+             for m in SLICE_MODULES + EMBED_MODULES + FT_MODULES + VOLUME_MODULES + STUDY_MODULES
+             + SWEEP_MODULES}
             <= set(names.split()))
 
 

@@ -220,7 +220,31 @@ Phases; any failure exits non-zero before the final line:
 35. ``submit_sweep --dry-run`` and ``submit_dual_h200 --dry-run`` through
    their ``main`` with ``subprocess.run`` refusing: 21 scripts asking for
    one card each, and 2 jobs holding the 21 runs; nothing submitted;
-36. a JSON line with each device program's host and device time and
+36. the backend rule on the one card: ``torchrun --nproc-per-node 2 -m
+   pd_fusion_torch.parallel.distributed`` with no backend named must fail
+   on both ranks before NCCL starts, its error naming
+   ``PD_FUSION_TORCH_DIST_BACKEND=gloo`` (NCCL itself refuses two ranks on
+   one device: "Duplicate GPU detected");
+37. the multi-device tier (``parallel/distributed.py``) in ``torchrun``
+   children with a process-group timeout, each killed after
+   ``DIST_CHILD_TIMEOUT_S``: (a) NCCL at world 1, ``all_reduce``,
+   ``all_gather`` and ``broadcast`` on CUDA tensors held to known answers,
+   the NCCL version printed; then one child of 2 ranks over gloo, both on
+   ``cuda:0`` (``chip_smoke.py --dist-child``), for (b) and (c): (b)
+   ``pd_fusion_torch.parallel.dryrun --size full``, the CV-engine legs on
+   the (2x1) and (1x2) meshes, the MIL-FT step at the fine-tune config's
+   width (ResNet-50, 224^2, 4 bags of 64 slices split 2+2, one unfrozen
+   step: its params, and its all-reduced gradients in float64) with K1
+   counted on each rank and each rank's peak memory, CNN3D at the data
+   config's width; each leg against its world-1 run; then the MIL bag
+   builder at world 2 over phase 14's 96 volumes against phase 16's bags,
+   per subject within 5e-5; (c) the bench CV frame (``--k-fold 5 --model fusion_moddrop``)
+   through the CLI at world 2 (a (1x2) mesh) against phase 7's in-process
+   run, within 5e-3 on probabilities and 5e-2 on metrics, the CV engine's
+   wall in the child beside phase 7's. The walls of (b) and (c) are
+   printed as "2 ranks sharing one card over gloo" beside the card's name
+   and power limit: findings, not claims;
+38. a JSON line with each device program's host and device time and
    launches a step; one with each path's wall time, busy share and AUC;
    one with each kernel's launches (by path), error and times (B=16 and
    B=80, and the launch floor); the card line again; then ``{"ok": true,
@@ -697,8 +721,11 @@ def run_tabular_cv(torch, yaml, ap, cli, config: Path, k: int, out: Path):
         calls.append((time.perf_counter() - t0, a, kw))
         return trained
 
+    from pd_fusion_torch.utils.profiling import get_phase_times
+
     ap.reset_launch_counts()
     tt.minibatch_moddrop_impl = timed
+    cv_before = get_phase_times().get("parallel_cv", 0.0)
     try:
         t0 = time.perf_counter()
         cli.main(args)
@@ -721,7 +748,8 @@ def run_tabular_cv(torch, yaml, ap, cli, config: Path, k: int, out: Path):
     (trainer_s, a, kw), = calls
     steps = _steps(a)
     return {"wall_s": wall, "auc": auc, "aggregated": agg, "args": args, "launches": launches,
-            "trainer_s": trainer_s, "steps": steps, "call": (a, kw)}
+            "trainer_s": trainer_s, "steps": steps, "call": (a, kw),
+            "parallel_cv_s": get_phase_times()["parallel_cv"] - cv_before}
 
 
 def _steps(a):
@@ -1709,7 +1737,7 @@ def run_ft_path(torch, np, yaml, ap, cli, tmp: Path, manifest: Path):
           f"run --config <copy of {FT_CONFIG.name}>): wall {cv_wall:.3f} s, K1 launches "
           f"{k1['kernel']}, plain 0, full_observation ROC-AUC {auc:.4f} +- "
           f"{on_disk['full_observation']['roc_auc']['std']:.4f} (no band: random backbone, "
-          f"3 epochs)")
+          f"{FT_DEPTH['epochs']} epochs)")
     for scen, m in on_disk.items():
         print(f"  {scen}: roc_auc {m['roc_auc']['mean']:.4f} +- {m['roc_auc']['std']:.4f}")
 
@@ -3010,12 +3038,223 @@ def _tensors(tree, prefix=""):
         yield prefix, tree
 
 
+# ---------------------------------------------------------------------------
+# the multi-device tier on one card (phases 36-37)
+# ---------------------------------------------------------------------------
+
+DIST_CHILD_TIMEOUT_S = 300  # a child that hangs is killed and fails the smoke
+DIST_COLLECTIVE_TIMEOUT_S = "120"  # the children's process-group timeout
+GLOO = {"PD_FUSION_TORCH_DIST_BACKEND": "gloo"}
+# the CLI's bands against the one-rank run (tests/test_multichip.py's)
+PROB_BAND, METRIC_BAND = 5e-3, 5e-2
+TOL_EMBED = 5e-5  # per-subject embeddings, sharded against one rank (the dry run's)
+DRYRUN_SIZE = "full"  # the MIL-FT leg at the fine-tune config's width
+
+
+def start_torchrun(nproc: int, args, env_extra=None):
+    """``torchrun --standalone --nproc-per-node nproc <args>`` from the
+    repo's root, in a session of its own (so a timeout kills every rank)."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               PD_FUSION_TORCH_DIST_TIMEOUT=DIST_COLLECTIVE_TIMEOUT_S)
+    env.pop("PD_FUSION_TORCH_DIST_BACKEND", None)
+    env.update(env_extra or {})
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={nproc}", *map(str, args)]
+    return subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+
+
+def finish_torchrun(proc, what, expect_ok=True):
+    """Wait for a ``start_torchrun`` child (killing its whole session after
+    ``DIST_CHILD_TIMEOUT_S``). -> (wall s, stdout, stderr); raises when it
+    exits otherwise than ``expect_ok`` says."""
+    import os
+    import signal
+
+    t0 = time.perf_counter()
+    try:
+        out, err = proc.communicate(timeout=DIST_CHILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise RuntimeError(f"{what}: no end after {DIST_CHILD_TIMEOUT_S} s; killed")
+    if (proc.returncode == 0) != expect_ok:
+        raise RuntimeError(f"{what}: torchrun exited {proc.returncode}\n{out[-3000:]}\n"
+                           f"{err[-6000:]}")
+    return time.perf_counter() - t0, out, err
+
+
+def run_torchrun(nproc, args, what, env_extra=None):
+    t0 = time.perf_counter()
+    _, out, err = finish_torchrun(start_torchrun(nproc, args, env_extra), what)
+    return time.perf_counter() - t0, out, err
+
+
+def bench_frame_results(yaml, np, out: Path, k: int):
+    """A K-fold run's per-fold metrics and full-observation probabilities."""
+    import pandas as pd
+
+    folds = [yaml.safe_load((out / f"results_fold_{i}.yaml").read_text())
+             for i in range(1, k + 1)]
+    probs = [pd.read_csv(out / f"preds_fold_{i}_full_observation.csv")["y_prob"].to_numpy()
+             for i in range(1, k + 1)]
+    return {"folds": folds, "probs": probs}
+
+
+def frame_gaps(np, a, b):
+    """(max |prob diff|, max |metric diff|) between two K-fold results."""
+    p = max(float(np.max(np.abs(x - y))) for x, y in zip(a["probs"], b["probs"]))
+    m = max(abs(fa[scen][metric] - fb[scen][metric])
+            for fa, fb in zip(a["folds"], b["folds"]) for scen in fa if scen != "fold"
+            for metric in fa[scen])
+    return p, m
+
+
+def run_backend_rule_and_nccl(torch):
+    """Phases 36 and 37(a), side by side: two ranks on the one card without
+    a backend named must refuse NCCL and name the variable; one rank
+    initialises NCCL and holds ``all_reduce``, ``all_gather`` and
+    ``broadcast`` on CUDA tensors to their known answers."""
+    refusal = start_torchrun(2, ["-m", "pd_fusion_torch.parallel.distributed"])
+    nccl = start_torchrun(1, ["-m", "pd_fusion_torch.parallel.distributed"])
+    wall, out, _ = finish_torchrun(nccl, "NCCL at world 1")
+    _, r_out, r_err = finish_torchrun(refusal, "NCCL with two ranks on one card",
+                                      expect_ok=False)
+    if "PD_FUSION_TORCH_DIST_BACKEND=gloo" not in r_out + r_err:
+        raise RuntimeError("two ranks on one card did not raise the backend rule's error:\n"
+                           + (r_out + r_err)[-3000:])
+    print("phase 36: two ranks on one card with no backend named: both refused before NCCL "
+          "started (the error names PD_FUSION_TORCH_DIST_BACKEND=gloo)")
+    rec = json.loads([ln for ln in out.splitlines() if ln.startswith("{")][-1])
+    if rec["backend"] != "nccl" or rec["world_size"] != 1:
+        raise RuntimeError(f"NCCL at world 1 gave {rec}")
+    print(f"phase 37(a): NCCL {rec['nccl']} at world 1 on {rec['device']}: all_reduce, "
+          f"all_gather and broadcast on CUDA tensors hold their known answers; wall {wall:.3f} s "
+          f"(torchrun, one process)")
+    return rec
+
+
+def dist_child(spec_path) -> int:
+    """Phase 37(b)-(c)'s ``torchrun`` child, on every rank (``chip_smoke.py
+    --dist-child SPEC``): the dry run, the MIL bag build and the bench CV
+    frame through the CLI, one after the other in one process group (one
+    start for the three). Each part's wall is taken between barriers; rank
+    0 writes them and the CV engine's wall to ``spec["out"]``."""
+    from pd_fusion_torch import cli
+    from pd_fusion_torch.parallel import distributed, dryrun
+    from pd_fusion_torch.scripts import build_resnet2d_mil_embeddings as bag_build
+    from pd_fusion_torch.utils.profiling import get_phase_times
+
+    spec = json.loads(Path(spec_path).read_text())
+    walls = {}
+    with distributed.process_group(kernels=True, host=True):
+        for name, run in (("dryrun", dryrun.main), ("bag_build", bag_build.main),
+                          ("bench_cv", cli.main)):
+            distributed.barrier()
+            t0 = time.perf_counter()
+            run(spec[name])
+            distributed.barrier()
+            walls[name] = time.perf_counter() - t0
+        if distributed.is_primary():
+            Path(spec["out"]).write_text(json.dumps(
+                {"walls": walls, "parallel_cv_s": get_phase_times()["parallel_cv"]}))
+    return 0
+
+
+def run_dist_tier(torch, np, yaml, tmp: Path, manifest: Path, bench_ref, card):
+    """Phase 37(b)-(c), in one ``torchrun`` child of 2 ranks over gloo, both
+    on cuda:0 (``dist_child``): the dry run, the MIL-FT leg at full width;
+    the MIL bag build at world 2 against phase 16's bags; the bench CV
+    frame through the CLI at world 2 against phase 7's run. -> (paths
+    record, K1 launches of the data-parallel fine-tune step)."""
+    label = f"2 ranks sharing one card over gloo ({card})"
+    mil_cfg = yaml.safe_load(MIL_DATA.read_text())["resnet2d_config"]
+    dry_out, w2_cache, cv_dir = tmp / "dryrun_w2.json", tmp / "embeddings_resnet2d_w2", \
+        tmp / "bench_cv_w2"
+    spec = {"dryrun": ["--size", DRYRUN_SIZE, "--mesh", "2x1,1x2", "--out", str(dry_out)],
+            "bag_build": script_argv(mil_cfg, manifest, w2_cache),
+            "bench_cv": ["run", "--config", str(QUICKSTART), "--synthetic", "--k-fold", "5",
+                         "--model", "fusion_moddrop", "--output-dir", str(cv_dir)],
+            "out": str(tmp / "dist_child.json")}
+    (tmp / "dist_child_spec.json").write_text(json.dumps(spec))
+    wall_child, out, _ = run_torchrun(2, [Path(__file__).resolve(), "--dist-child",
+                                          tmp / "dist_child_spec.json"],
+                                      "the dry run, bag build and bench CV at world 2", GLOO)
+    child = json.loads(Path(spec["out"]).read_text())
+    print(f"phase 37(b)-(c) torchrun child of 2 ranks: {wall_child:.3f} s with both "
+          f"processes' start; parts {json.dumps({k: round(v, 3) for k, v in child['walls'].items()})} s")
+
+    # (b) the dry run: the CV-engine legs on both meshes of 2 ranks
+    print("\n".join(ln for ln in out.splitlines() if ln.startswith("dryrun_multichip")))
+    dry = json.loads(dry_out.read_text())
+    if DEV == "cuda" and not all(n > 0 for n in dry["k1_launches"]):  # the CPU runs plain
+        raise RuntimeError(f"K1 did not launch on every rank of the MIL-FT step: {dry}")
+    walls = dry["walls"]
+    print(f"phase 37(b) dry run, {label}: {child['walls']['dryrun']:.3f} s; "
+          f"MIL-FT step ({dry['ft_arch']}, {dry['ft_px']}^2, {dry['ft_bags']} bags x "
+          f"{dry['ft_slices']} slices, unfrozen): world-1 {walls['mil_ft_world1_s']:.3f} s, "
+          f"world-2 {walls['mil_ft_sharded_s']:.3f} s; its all-reduced float64 gradients "
+          f"{dry['diffs']['mil_ft_grads']:.3e} (relative) off the world-1 step's, in "
+          f"{walls['mil_ft_grads_world1_s']:.3f} and {walls['mil_ft_grads_sharded_s']:.3f} s; "
+          f"K1 launches by "
+          f"rank {dry['k1_launches']}; peak device memory by rank "
+          f"{[round(m, 1) for m in dry['peak_mib']]} MiB; CNN3D world-1 "
+          f"{walls['cnn3d_world1_s']:.3f} s, world-2 {walls['cnn3d_sharded_s']:.3f} s; replicas "
+          f"bitwise equal {dry['replicas_equal']}")
+    print(f"  walls (s): {json.dumps({k: round(v, 4) for k, v in walls.items()})}")
+
+    # (b) the MIL bag build over phase 14's volumes at world 2, against phase 16's bags
+    (one,), (two,) = list((tmp / "embeddings_resnet2d").glob("*.npz")), list(
+        w2_cache.glob("*.npz"))
+    if one.name != two.name:
+        raise RuntimeError(f"the world-2 build's cache name {two.name} is not {one.name}")
+    with np.load(one, allow_pickle=True) as a, np.load(two, allow_pickle=True) as b:
+        if list(a["subject_id"]) != list(b["subject_id"]):
+            raise RuntimeError("the world-2 bags are not in the manifest's subject order")
+        bag_err = float(np.max(np.abs(a["embeddings"] - b["embeddings"])))
+        n_bags = len(a["embeddings"])
+    if not bag_err <= TOL_EMBED:
+        raise RuntimeError(f"the world-2 MIL bags differ from phase 16's by {bag_err}")
+    wall_bags = child["walls"]["bag_build"]
+    print(f"phase 37(b) MIL bag build over {n_bags} volumes, {label}: {wall_bags:.3f} s "
+          f"(phase 16, one process: {bench_ref['bag_wall_s']:.3f} s), max |emb diff| against "
+          f"phase 16's bags {bag_err:.3e} (tolerance {TOL_EMBED})")
+
+    # (c) the bench CV frame through the CLI at world 2, against phase 7's run
+    # in this process (world 1)
+    res = bench_frame_results(yaml, np, cv_dir, 5)
+    prov = yaml.safe_load((cv_dir / "provenance.yaml").read_text())["env"]
+    p_gap, m_gap = frame_gaps(np, res, bench_ref["cv5"])
+    if not (p_gap < PROB_BAND and m_gap < METRIC_BAND) or prov["world_size"] != 2:
+        raise RuntimeError(f"the bench CV frame at world 2 is {p_gap}, {m_gap} off phase 7 "
+                           f"({prov})")
+    wall, cv_s = child["walls"]["bench_cv"], child["parallel_cv_s"]
+    cv = {"wall_s": wall, "parallel_cv_s": cv_s, "prob_gap": p_gap, "metric_gap": m_gap,
+          "world_size": prov["world_size"], "backend": prov["dist_backend"],
+          "world1_parallel_cv_s": bench_ref["cv5_parallel_cv_s"]}
+    print(f"phase 37(c) bench CV frame (--k-fold 5, fusion_moddrop) at world 2 "
+          f"({prov['dist_backend']}, {label}): {wall:.3f} s, the CV engine {cv_s:.3f} s (world "
+          f"1, phase 7 in this process: {bench_ref['cv5_parallel_cv_s']:.3f} s); against phase "
+          f"7's run: max |prob diff| {p_gap:.3e}, max |metric diff| {m_gap:.3e} (bands "
+          f"{PROB_BAND}, {METRIC_BAND})")
+    rec = {"name": "multi_device_tier_one_card", "label": label, "dryrun": dry,
+           "child_wall_s": wall_child, "dryrun_wall_s": child["walls"]["dryrun"],
+           "bag_build_w2_wall_s": wall_bags, "bag_build_w2_max_abs_err": bag_err,
+           "bench_cv_w2": cv}
+    return rec, sum(dry["k1_launches"])
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
     parser.add_argument("--compare-with", type=Path, default=None,
                         help="another attention_pool.cu with K1's first C interface, timed "
                              "against K1 in turns")
+    parser.add_argument("--dist-child", type=Path, default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
+    if args.dist_child is not None:  # phase 37's torchrun child (dist_child)
+        return dist_child(args.dist_child)
     import torch
 
     if not torch.cuda.is_available():
@@ -3155,6 +3394,9 @@ def main() -> int:
             cv = run_tabular_cv(torch, yaml, ap, cli, config, k, tmp / name)
             if k == 5 and not cv["auc"] > CV_AUC_MIN:
                 raise RuntimeError(f"5-fold CV ROC-AUC {cv['auc']} is not > {CV_AUC_MIN}")
+            if k == 5:  # phase 37(c) holds the run under torchrun against this one
+                bench_ref = {"cv5": bench_frame_results(yaml, np, tmp / name, 5),
+                             "cv5_parallel_cv_s": cv["parallel_cv_s"]}
             host_us = cv["trainer_s"] / cv["steps"] * 1e6
             print(f"{name} (fusion_moddrop, [64, 32], batch 32, 50 epochs): wall "
                   f"{cv['wall_s']:.3f} s, trainer {cv['trainer_s']:.3f} s for {cv['steps']} "
@@ -3265,21 +3507,30 @@ def main() -> int:
         programs.update(imaging_progs)
         if "sklearn" in sys.modules:
             raise RuntimeError("the sweep tier or the PPMI analyses imported scikit-learn")
+
+        # phase 35: both submitters' dry runs
+        ap.reset_launch_counts()
+        paths.append(run_submitters_dry(tmp_ppmi / "submit"))
+        _zero_k1(ap, vol_launches, "submitters_dry_run")
+        print(f"phases 31-35: {time.perf_counter() - t_new:.3f} s")
+
+        # phases 36-37: the multi-device tier on this one card, in child
+        # processes under torchrun: the backend rule, NCCL at world 1, the
+        # dry run at world 2 over gloo, the MIL bag build over phase 14's
+        # volumes at world 2, the bench CV frame at world 2 against phase
+        # 7's in-process run
+        t_new = time.perf_counter()
+        torch.cuda.empty_cache()
+        bench_ref["bag_wall_s"] = next(p["wall_s"] for p in paths if p["name"] == "embed_mil_bags")
+        nccl_rec = run_backend_rule_and_nccl(torch)
+        dist_rec, dist_launches = run_dist_tier(torch, np, yaml, tmp, manifest, bench_ref, card)
+        paths.append({**dist_rec, "nccl_world1": nccl_rec})
+        print(f"phases 36-37: {time.perf_counter() - t_new:.3f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         shutil.rmtree(tmp_ppmi, ignore_errors=True)
 
-    # phase 35: both submitters' dry runs
-    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_submit_"))
-    try:
-        ap.reset_launch_counts()
-        paths.append(run_submitters_dry(tmp / "work"))
-        _zero_k1(ap, vol_launches, "submitters_dry_run")
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    print(f"phases 31-35: {time.perf_counter() - t_new:.3f} s")
-
-    # phase 36: the record (times at the training step's shape, and at B=80)
+    # phase 38: the record (times at the training step's shape, and at B=80)
     print(json.dumps({"programs": [
         {"name": name, **{k: v for k, v in rec.items() if k != "prof"}}
         for name, rec in programs.items()]}))
@@ -3289,11 +3540,12 @@ def main() -> int:
         "route": "cuda",
         "source": "src/pd_fusion_torch/csrc/attention_pool.cu",
         "replaces": "src/pd_fusion/ops/pallas_mil.py:26",
-        "launches": res["launches"] + built_launches + ft_launches + mil_sweep_launches + sum(
-            k1["kernel"] for k1 in vol_launches.values()),
+        "launches": res["launches"] + built_launches + ft_launches + mil_sweep_launches
+        + dist_launches + sum(k1["kernel"] for k1 in vol_launches.values()),
         "launches_by_path": {"mil_cv_synthetic_bags": res["launches"],
                              "mil_cv_built_bags": built_launches, "mil_ft_cv": ft_launches,
                              "mil_fused_sweep": mil_sweep_launches,
+                             "mil_ft_data_parallel": dist_launches,
                              **{name: k1["kernel"] for name, k1 in vol_launches.items()}},
         "max_abs_err": max_err,
         "ms": t["kernel_ms"],

@@ -25,6 +25,17 @@ OpenNeuro accessions that are not on disk yet (``data/download/*``; the
 OpenNeuro part only where its CLI is installed) and prints how to obtain
 the access-controlled datasets. The invocation string is exported as
 PD_FUSION_COMMAND for provenance.
+
+Under ``torchrun`` (one process per card)::
+
+    torchrun --standalone --nproc-per-node N -m pd_fusion_torch.cli run ...
+
+``main`` sets up the process group at entry (``parallel/distributed.py``:
+NCCL with a card per rank, ``PD_FUSION_TORCH_DIST_BACKEND=gloo`` for
+ranks that share a card or run on the CPU), builds the native libraries
+once on the first local rank, and tears the group down at exit. Rank 0
+logs at INFO and writes the run; the other ranks log at ERROR. Without a
+launcher nothing of this happens.
 """
 import argparse
 import os
@@ -32,8 +43,10 @@ import sys
 from pathlib import Path
 
 from pd_fusion_torch.experiments.registry import MODEL_REGISTRY
+from pd_fusion_torch.parallel import distributed
 from pd_fusion_torch.utils.io import load_yaml
 from pd_fusion_torch.utils.logging import setup_logging
+
 
 def _resolve_path(path_str: str) -> Path:
     p = Path(path_str)
@@ -155,7 +168,16 @@ def main(argv=None):
     if args.command is None:
         parser.print_help()
         return None
+    with distributed.process_group(kernels=True, host=True):
+        return _run(args, argv)
+
+
+def _run(args, argv):
     setup_logging()
+    if not distributed.is_primary():
+        import logging
+
+        logging.getLogger("pd_fusion").setLevel(logging.ERROR)
     os.environ["PD_FUSION_COMMAND"] = "python -m pd_fusion_torch.cli " + " ".join(
         sys.argv[1:] if argv is None else argv
     )

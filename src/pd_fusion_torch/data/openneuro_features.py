@@ -29,6 +29,8 @@ from typing import Dict
 import numpy as np
 import pandas as pd
 
+from pd_fusion_torch.parallel import distributed
+
 _KEY_BYTES = 1 << 20
 
 
@@ -207,6 +209,8 @@ def build_resnet2d_embeddings(manifest_path: Path, cache_dir: Path, config: Dict
     mat = np.stack(embeddings).astype(float)
     out = pd.DataFrame(
         {**_id_columns(df), **{f"mri_resnet_{k}": mat[:, k] for k in range(mat.shape[1])}})
+    if not distributed.is_primary():
+        return out  # rank 0 writes the cache
     out.to_parquet(out_path, index=False)
     _write_meta(cache_dir / f"{stem}.json", manifest_path, config, arch, dim, pretrained, len(df))
     return out
@@ -236,6 +240,8 @@ def build_resnet2d_mil_embeddings(manifest_path: Path, cache_dir: Path, config: 
 
     df = _read_manifest(manifest_path)
     embeddings, arch, dim, pretrained = _run_embed(df, config, per_slice=True)
+    if not distributed.is_primary():
+        return out_path  # rank 0 writes the cache
     ids = _id_columns(df)
     np.savez_compressed(
         out_path,

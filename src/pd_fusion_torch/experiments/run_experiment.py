@@ -20,6 +20,13 @@ the JAX package: ``ppmi`` (synthetic or the processed parquet),
 ``uci_parkinsons``, ``uci_telemonitoring``, and ``openneuro_<accession>``,
 ``ds004471`` or ``ds004392`` (a BIDS participants table; the dev loaders
 read local files under ``paths.dev_data_dir()``).
+
+Under ``torchrun`` (``parallel/distributed.py``) every rank runs the
+pipeline; rank 0 makes the run id and broadcasts it, and only rank 0
+creates the run directory and writes into it (artifacts, YAML, CSVs,
+plots). The other ranks' ``run_dir`` is ``None``. The CV engine shards
+what it shards (``parallel/cv_engine.py``) and hands every rank the same
+results.
 """
 import datetime
 import logging
@@ -45,6 +52,7 @@ from pd_fusion_torch.evaluation.evaluate import (
     predict_for_masks,
     predict_proba_for_scenario,
 )
+from pd_fusion_torch.parallel import distributed
 from pd_fusion_torch.evaluation.plots import (
     plot_calibration_curve_func,
     plot_degradation_curve,
@@ -105,6 +113,8 @@ def _env_info():
         "device": str(dev),
         "device_name": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
         "device_count": torch.cuda.device_count() if dev.type == "cuda" else 0,
+        "world_size": distributed.world_size(),
+        "dist_backend": distributed.backend() or "none",
     }
 
 
@@ -151,9 +161,18 @@ def _load_configs(config_path, overrides):
 
 
 def _run_id(overrides, prefix):
+    """The configured output directory, else a timestamped id made by rank 0
+    and broadcast to the other ranks."""
     if overrides and "output_dir" in overrides:
         return overrides["output_dir"]
-    return f"{prefix}_{datetime.datetime.now().strftime('%Y%m%d_%H%M%S')}"
+    return distributed.broadcast_object(
+        f"{prefix}_{datetime.datetime.now().strftime('%Y%m%d_%H%M%S')}")
+
+
+def _run_dir(run_id):
+    """The run directory, created, on rank 0; ``None`` on the other ranks,
+    which write nothing."""
+    return get_run_dir(run_id) if distributed.is_primary() else None
 
 
 def _example_plots(run_dir, config, suffix, results, y_true, y_prob, masks):
@@ -174,7 +193,7 @@ def run_full_pipeline(config_path: str, synthetic: bool = False, overrides: dict
     set_seed(config.get("seed", 42))
 
     run_id = _run_id(overrides, "run")
-    run_dir = get_run_dir(run_id)
+    run_dir = _run_dir(run_id)
     logger.info(f"Starting experiment: {run_id}")
     logger.info(f"Config: {config_path}")
     if overrides:
@@ -191,22 +210,23 @@ def run_full_pipeline(config_path: str, synthetic: bool = False, overrides: dict
     with phase_timer("train"), maybe_profile("train"):
         model, prep_info = train_pipeline(config, train_df, val_df, train_masks, val_masks)
 
-    model.save(run_dir / "model.pt")
-    save_pickle(prep_info, run_dir / "preprocess.pkl")
-
-    _save_run_provenance(run_dir, config, eval_config, dataset_name, synthetic, overrides)
+    if run_dir is not None:
+        model.save(run_dir / "model.pt")
+        save_pickle(prep_info, run_dir / "preprocess.pkl")
+        _save_run_provenance(run_dir, config, eval_config, dataset_name, synthetic, overrides)
 
     with phase_timer("evaluate"), maybe_profile("evaluate"):
         results = evaluate_model(model, test_df, test_masks, prep_info, eval_config)
-    save_yaml(results, run_dir / "results.yaml")
+    if run_dir is not None:
+        save_yaml(results, run_dir / "results.yaml")
 
     logger.info("Generating plots...")
     y_test = test_df[TARGET_COL].values
     y_prob = predict_for_masks(model, test_df, test_masks, prep_info)
-    _example_plots(run_dir, config, "", results, y_test, y_prob, test_masks)
-
-    if config.get("conformal", False):
-        _fit_conformal(model, prep_info, val_df, val_masks, run_dir, logger)
+    if run_dir is not None:
+        _example_plots(run_dir, config, "", results, y_test, y_prob, test_masks)
+        if config.get("conformal", False):
+            _fit_conformal(model, prep_info, val_df, val_masks, run_dir, logger)
 
     logger.info(f"Experiment finished. Results saved in {run_dir}")
     return results
@@ -272,7 +292,8 @@ def evaluate_run(config_path: str, run_dir: str):
     prep_info = load_pickle(run_path / "preprocess.pkl")
 
     results = evaluate_model(model, test_df, test_masks, prep_info, eval_config)
-    save_yaml(results, run_path / "results_eval.yaml")
+    if distributed.is_primary():
+        save_yaml(results, run_path / "results_eval.yaml")
     logger.info(f"Re-evaluation saved to {run_path / 'results_eval.yaml'}")
     return results
 
@@ -285,9 +306,10 @@ def run_cv_pipeline(config_path: str, k: int = 5, synthetic: bool = False, overr
     dataset_name, df, masks = load_dataset(config, data_config, synthetic)
 
     run_id = _run_id(overrides, "cv")
-    run_dir = get_run_dir(run_id)
+    run_dir = _run_dir(run_id)
     logger.info(f"Starting {k}-Fold CV: {run_id}")
-    _save_run_provenance(run_dir, config, eval_config, dataset_name, synthetic, overrides)
+    if run_dir is not None:
+        _save_run_provenance(run_dir, config, eval_config, dataset_name, synthetic, overrides)
 
     group_col = config.get("group_col") or config.get("cv_group_col")
     seed = config.get("seed", 42)
@@ -305,12 +327,15 @@ def run_cv_pipeline(config_path: str, k: int = 5, synthetic: bool = False, overr
     if group_col and group_col in fold_df.columns:
         keep = [group_col, "fold", TARGET_COL] + [c for c in ["session"] if c in fold_df.columns]
         fold_df = fold_df[keep]
-    fold_df.to_csv(run_dir / "fold_assignments.csv", index=False)
+    if run_dir is not None:
+        fold_df.to_csv(run_dir / "fold_assignments.csv", index=False)
 
     from pd_fusion_torch.parallel.cv_engine import run_parallel_cv, supports_parallel_cv
     from pd_fusion_torch.training.train import _resolve_params
 
     def _save_fold_preds(i, val_df, y_true, y_prob):
+        if run_dir is None:
+            return
         pred_df = pd.DataFrame({"y_true": y_true.astype(int), "y_prob": y_prob, "fold": i + 1})
         if group_col and group_col in val_df.columns:
             pred_df[group_col] = val_df[group_col].values
@@ -326,9 +351,10 @@ def run_cv_pipeline(config_path: str, k: int = 5, synthetic: bool = False, overr
             metrics_all, fold_preds = run_parallel_cv(config, df, masks, folds, eval_config)
         for i, res in enumerate(metrics_all):
             res["fold"] = i + 1
-            save_yaml(res, run_dir / f"results_fold_{i + 1}.yaml")
+            if run_dir is not None:
+                save_yaml(res, run_dir / f"results_fold_{i + 1}.yaml")
             _save_fold_preds(i, folds[i][1], *fold_preds[i])
-        if config.get("cv_plot_example", False):
+        if config.get("cv_plot_example", False) and run_dir is not None:
             fold1 = {kk: v for kk, v in metrics_all[0].items() if kk != "fold"}
             _example_plots(run_dir, config, "_fold1", fold1, *fold_preds[0], None)
         folds_iter = []
@@ -365,13 +391,14 @@ def run_cv_pipeline(config_path: str, k: int = 5, synthetic: bool = False, overr
         results = evaluate_model(model, val_df, val_masks, prep_info, eval_config)
         results["fold"] = i + 1
         metrics_all.append(results)
-        save_yaml(results, run_dir / f"results_fold_{i + 1}.yaml")
+        if run_dir is not None:
+            save_yaml(results, run_dir / f"results_fold_{i + 1}.yaml")
 
         scenario = {"name": "full_observation", "drop_modalities": []}
         y_true, y_prob = predict_proba_for_scenario(model, val_df, val_masks, prep_info, scenario)
         _save_fold_preds(i, val_df, y_true, y_prob)
 
-        if config.get("cv_plot_example", False) and i == 0:
+        if config.get("cv_plot_example", False) and i == 0 and run_dir is not None:
             fold_results = {kk: v for kk, v in results.items() if kk != "fold"}
             y_true = val_df[TARGET_COL].values
             y_prob = predict_for_masks(model, val_df, val_masks, prep_info)
@@ -391,13 +418,14 @@ def run_cv_pipeline(config_path: str, k: int = 5, synthetic: bool = False, overr
                     {"scenario": scen, "metric": m, "mean": mean_val, "std": std_val}
                 )
 
-    save_yaml(aggregated, run_dir / "results_aggregated.yaml")
-    summary_df = pd.DataFrame(summary_rows)
-    summary_df.to_csv(run_dir / "summary_table.csv", index=False)
-    try:
-        summary_df.to_latex(run_dir / "summary_table.tex", index=False, float_format="%.4f")
-    except Exception as e:  # pragma: no cover
-        logger.warning(f"LaTeX table generation failed: {e}")
+    if run_dir is not None:
+        save_yaml(aggregated, run_dir / "results_aggregated.yaml")
+        summary_df = pd.DataFrame(summary_rows)
+        summary_df.to_csv(run_dir / "summary_table.csv", index=False)
+        try:
+            summary_df.to_latex(run_dir / "summary_table.tex", index=False, float_format="%.4f")
+        except Exception as e:  # pragma: no cover
+            logger.warning(f"LaTeX table generation failed: {e}")
 
     logger.info(f"CV Finished. Summary saved to {run_dir}")
 
@@ -412,7 +440,9 @@ def run_cv_pipeline(config_path: str, k: int = 5, synthetic: bool = False, overr
                 va_masks = get_subset_masks(masks, va.index)
                 model, prep_info = train_pipeline(config, tr, va, tr_masks, va_masks)
                 results = evaluate_model(model, va, va_masks, prep_info, eval_config)
-                save_yaml(results, run_dir / f"session_shift_ses{train_ses}_to_{test_ses}.yaml")
+                if run_dir is not None:
+                    save_yaml(results,
+                              run_dir / f"session_shift_ses{train_ses}_to_{test_ses}.yaml")
         else:
             logger.warning(
                 f"session_shift requested but session_col '{session_col}' not found."

@@ -38,6 +38,15 @@ angle, translation, intensity scale and shift and the noise over the
 padded ``[bs, L_i, h, w]``. The head's dropout keeps come from a torch
 generator split off the seed chain, or from ``train(dropout_keep_fn=)``.
 
+Data parallelism (``ft_step(group=)``, the JAX dry run's MIL-FT leg: bags
+sharded over every device, params replicated): each rank steps its own
+bags of the batch; every BN takes the whole batch's statistics
+(``nn/resnet.py``), the loss is the global mean (its denominator summed
+over the group), the gradients are summed over the group, and the
+global-norm clip then sees the global gradient. K1 pools every rank's
+bags. Head dropout under a group takes its keeps explicitly (the rank's
+rows of the whole batch's draw).
+
 Artifacts keep the JAX package's layout, ``{"kind": "mil_attention_ft",
 "params", "backbone": <HWIO numpy tree>, "attn": <head numpy tree>}``, so
 each package loads the other's file.
@@ -68,6 +77,7 @@ from pd_fusion_torch.nn.resnet import (
 )
 from pd_fusion_torch.ops.image import affine2d_subjects, slices_to_imagenet_batch
 from pd_fusion_torch.ops.metrics import roc_auc
+from pd_fusion_torch.parallel.distributed import all_reduce, all_reduce_grads
 from pd_fusion_torch.utils.device import get_device
 from pd_fusion_torch.utils.io import load_pickle, save_pickle
 from pd_fusion_torch.utils.seed import fresh_generator
@@ -169,11 +179,12 @@ def augment(slices, angle, translate, scale, shift, noise):
                        0.0, 1.0)
 
 
-def ft_loss(logits, y, valid, loss_type, pos_weight, focal_gamma, focal_alpha):
+def ft_loss(logits, y, valid, loss_type, pos_weight, focal_gamma, focal_alpha, denom=None):
     """``sum(loss * valid) / max(sum(valid), 1)`` of focal loss or
-    pos-weighted BCE on logits, as the JAX step's ``loss_fn``."""
+    pos-weighted BCE on logits, as the JAX step's ``loss_fn``; ``denom``
+    replaces ``sum(valid)`` (the whole batch's, for one rank's bags)."""
     bce = torch.logaddexp(logits, torch.zeros_like(logits)) - y * logits
-    denom = torch.sum(valid)
+    denom = torch.sum(valid) if denom is None else denom
     denom = torch.where(denom > 0, denom, 1.0)
     pos = y >= 0.5
     if loss_type == "focal":
@@ -186,14 +197,17 @@ def ft_loss(logits, y, valid, loss_type, pos_weight, focal_gamma, focal_alpha):
 
 
 def ft_forward(backbone, head, batch: Dict, hyper: Dict, generator=None,
-               train_backbone: bool = True):
+               train_backbone: bool = True, group=None):
     """The train-mode forward of one batch -> (loss, backbone params with
     the new running statistics). ``batch``: device tensors ``slices`` [B,
     L, h, w], ``bag_mask``, ``bn_mask`` [B, L], ``y``, ``valid`` [B],
     ``angle`` [B], ``translate`` [B, 2], ``scale``, ``shift`` [B],
     ``noise`` [B, L, h, w], and ``keep`` (bool [B, L, H] dropout keeps, or
     None to draw them from ``generator``). ``train_backbone=False`` runs
-    the backbone outside autograd."""
+    the backbone outside autograd. ``group``: the batch is this rank's
+    bags of a batch sharded over the group."""
+    if group is not None and hyper["head_dropout"] > 0 and batch.get("keep") is None:
+        raise ValueError("a data-parallel step takes its head dropout keeps explicitly")
     slices = batch["slices"]
     B, L = slices.shape[:2]
     with torch.set_grad_enabled(train_backbone and torch.is_grad_enabled()):
@@ -202,37 +216,56 @@ def ft_forward(backbone, head, batch: Dict, hyper: Dict, generator=None,
         x = slices_to_imagenet_batch(aug.reshape(B * L, *aug.shape[2:]), hyper["input_size"],
                                      hyper["mean"], hyper["std"])
         emb, stats = resnet_apply_train(backbone, x, hyper["arch"],
-                                        sample_weight=batch["bn_mask"].reshape(B * L))
+                                        sample_weight=batch["bn_mask"].reshape(B * L),
+                                        group=group)
     logits = mil_apply(head, emb.reshape(B, L, -1), batch["bag_mask"], gated=hyper["gated"],
                        dropout_rate=hyper["head_dropout"], generator=generator,
                        dropout_keep=batch.get("keep"))
+    denom = None if group is None else all_reduce(torch.sum(batch["valid"]), group)
     loss = ft_loss(logits, batch["y"], batch["valid"], hyper["loss_type"], hyper["pos_weight"],
-                   hyper["focal_gamma"], hyper["focal_alpha"])
+                   hyper["focal_gamma"], hyper["focal_alpha"], denom)
     return loss, stats
 
 
-def ft_step(backbone, head, opt_state, batch: Dict, gate: float, hyper: Dict, generator=None):
-    """One augment -> backbone -> head -> loss -> two-group Adam step (the
-    JAX package's ``_ft_update``). Functional in the parameters: -> (new
-    backbone with the new running statistics, new head, loss);
-    ``opt_state`` (``{"backbone", "head"}`` groups of ``nn/ft_optim.py``)
-    is updated in place. While ``gate`` is 0 the backbone stays out of
-    autograd and its gradient is the zero gradient."""
+def ft_grads(backbone, head, batch: Dict, gate: float, hyper: Dict, generator=None,
+             group=None):
+    """The gradients of ``ft_step``'s loss -> (backbone gradients, ``None``
+    while ``gate`` is 0; head gradients; the loss, detached; the new
+    running statistics). With ``group`` the gradients are summed over the
+    group."""
     on = float(gate) != 0.0
     bp = replace_trainable(backbone, [t.detach().requires_grad_(on)
                                       for t in trainable_leaves(backbone)])
     hp = replace_trainable(head, [t.detach().requires_grad_(True) for t in trainable_leaves(head)])
     b_leaves, h_leaves = trainable_leaves(bp), trainable_leaves(hp)
-    loss, stats = ft_forward(bp, hp, batch, hyper, generator, train_backbone=on)
+    loss, stats = ft_forward(bp, hp, batch, hyper, generator, train_backbone=on, group=group)
     grads = torch.autograd.grad(loss, h_leaves + (b_leaves if on else []))
+    if group is not None:
+        grads = all_reduce_grads(grads, group)
     g_h, g_b = list(grads[:len(h_leaves)]), (list(grads[len(h_leaves):]) if on else None)
+    return g_b, g_h, loss.detach(), stats
+
+
+def ft_step(backbone, head, opt_state, batch: Dict, gate: float, hyper: Dict, generator=None,
+            group=None):
+    """One augment -> backbone -> head -> loss -> two-group Adam step (the
+    JAX package's ``_ft_update``). Functional in the parameters: -> (new
+    backbone with the new running statistics, new head, loss);
+    ``opt_state`` (``{"backbone", "head"}`` groups of ``nn/ft_optim.py``)
+    is updated in place. While ``gate`` is 0 the backbone stays out of
+    autograd and its gradient is the zero gradient. With ``group`` the
+    batch is this rank's bags: the gradients are summed over the group
+    before the update (so the clip sees the global norm), and the loss
+    returned is this rank's share of the global mean."""
+    g_b, g_h, loss, stats = ft_grads(backbone, head, batch, gate, hyper, generator, group)
     with torch.no_grad():
         new_b, new_h = ft_optim.ft_update(
-            [t.detach() for t in b_leaves], [t.detach() for t in h_leaves], g_b, g_h, opt_state,
+            [t.detach() for t in trainable_leaves(backbone)],
+            [t.detach() for t in trainable_leaves(head)], g_b, g_h, opt_state,
             gate, hyper["lr_backbone"], hyper["lr"], hyper["weight_decay"],
             hyper["max_grad_norm"])
     backbone = merge_bn_stats(replace_trainable(backbone, new_b), stats)
-    return backbone, replace_trainable(head, new_h), loss.detach()
+    return backbone, replace_trainable(head, new_h), loss
 
 
 def val_auc(y, probs) -> float:

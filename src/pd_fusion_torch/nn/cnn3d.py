@@ -30,6 +30,14 @@ JAX package's draws) or drawn by ``torch.randperm`` from an explicit
 generator on the volumes' device. Adam is optax's (``nn/ft_optim.py``:
 betas 0.9/0.999, eps 1e-8 outside the bias-corrected square root).
 
+Data parallelism (``group=``; the JAX builder shards the volume batch
+over a data mesh, the counterpart of the upstream ``nn.DataParallel``):
+``volumes`` holds this rank's contiguous share of the rows, every rank
+draws the same global permutation, each rank steps the batch's rows it
+owns (the others' loss terms are theirs) over the batch's global weight,
+and the gradients are summed over the group before the Adam step. The
+embeddings are gathered in row order on every rank.
+
 No hand kernel: the JAX module reaches no Pallas kernel (XLA
 convolutions, reduce-window and optax), so the convolutions are torch's
 (TF32 off, ``utils/device.py``). Their forward and data gradients are
@@ -47,6 +55,7 @@ import torch
 import torch.nn.functional as F
 
 from pd_fusion_torch.nn import ft_optim
+from pd_fusion_torch.parallel.distributed import all_reduce_grads, gather_rows, row_span
 
 ENCODER = (("enc1", 1, 8), ("enc2", 8, 16), ("enc3", 16, 32))
 DECODER = (("dec1", 32, 16), ("dec2", 16, 8), ("dec3", 8, 1))
@@ -199,12 +208,15 @@ def cnn3d_apply(params: Dict, x: torch.Tensor, input_shape):
     return r, emb
 
 
-def recon_loss(params: Dict, xb: torch.Tensor, wb: torch.Tensor, input_shape) -> torch.Tensor:
+def recon_loss(params: Dict, xb: torch.Tensor, wb: torch.Tensor, input_shape,
+               total=None) -> torch.Tensor:
     """Weighted mean over the batch of each volume's reconstruction MSE; a
-    batch of weight 0 gives 0, not 0/0."""
+    batch of weight 0 gives 0, not 0/0. ``total`` replaces ``sum(wb)`` (the
+    whole batch's weight, for one rank's rows of it)."""
     recon, _ = cnn3d_apply(params, xb, input_shape)
     per = torch.mean((recon - xb) ** 2, dim=(1, 2, 3, 4))
-    t = torch.sum(wb)
+    t = torch.sum(wb) if total is None else torch.as_tensor(total, dtype=per.dtype,
+                                                            device=per.device)
     return torch.sum(per * wb) / torch.where(t > 0, t, torch.ones_like(t))
 
 
@@ -213,12 +225,16 @@ def init_opt(params: Dict) -> Dict:
 
 
 def train_step(params: Dict, opt: Dict, xb: torch.Tensor, wb: torch.Tensor, lr: float,
-               input_shape):
+               input_shape, group=None, total=None):
     """One Adam step on one batch. ``opt`` is updated in place. -> (new
-    params, the batch's loss before the step)."""
+    params, the batch's loss before the step). With ``group``: ``xb`` is
+    this rank's rows of the batch, ``total`` the batch's weight, and the
+    gradients are summed over the group."""
     flat = [p.detach().requires_grad_(True) for p in leaves(params)]
-    loss = recon_loss(from_leaves(flat), xb, wb, input_shape)
+    loss = recon_loss(from_leaves(flat), xb, wb, input_shape, total)
     grads = torch.autograd.grad(loss, flat)
+    if group is not None:
+        grads = all_reduce_grads(grads, group)
     with torch.no_grad():
         new = ft_optim.adam_update([p.detach() for p in flat], list(grads), opt, lr)
     return from_leaves(new), loss.detach()
@@ -237,12 +253,13 @@ def epoch_batches(perm: torch.Tensor, batch_size: int):
 
 def train_cnn3d(params: Dict, volumes: torch.Tensor, lr: float, input_shape, epochs: int,
                 batch_size: int, generator: Optional[torch.Generator] = None,
-                perms: Optional[Sequence] = None) -> Dict:
+                perms: Optional[Sequence] = None, group=None) -> Dict:
     """MSE reconstruction training on ``volumes`` [N, 1, D, H, W]. Each
     epoch's permutation is ``perms[e]`` when given, else
-    ``torch.randperm(N, generator=generator)`` on the volumes' device."""
-    n = volumes.shape[0]
+    ``torch.randperm(N, generator=generator)`` on the volumes' device.
+    With ``group``: ``volumes`` is this rank's share and N the group's."""
     dev = volumes.device
+    lo, n = row_span(volumes.shape[0], group)
     opt = init_opt(params)
     for e in range(epochs):
         if perms is not None:
@@ -251,11 +268,24 @@ def train_cnn3d(params: Dict, volumes: torch.Tensor, lr: float, input_shape, epo
             perm = torch.randperm(n, generator=generator, device=dev)
         idx, w = epoch_batches(perm, batch_size)
         for b in range(idx.shape[0]):
-            params, _ = train_step(params, opt, volumes[idx[b]], w[b], lr, input_shape)
+            if group is None:
+                params, _ = train_step(params, opt, volumes[idx[b]], w[b], lr, input_shape)
+                continue
+            rows = idx[b].cpu()
+            own = ((rows >= lo) & (rows < lo + volumes.shape[0]) & (w[b].cpu() > 0)).nonzero()
+            own = own[:, 0]
+            # a rank with no row of the batch steps row 0 at weight 0
+            local = rows[own] - lo if own.numel() else torch.zeros(1, dtype=torch.long)
+            wb = w[b][own.to(dev)] if own.numel() else torch.zeros(1, device=dev)
+            params, _ = train_step(params, opt, volumes[local.to(dev)], wb, lr, input_shape,
+                                   group, total=float(w[b].sum()))
     return params
 
 
-def cnn3d_embed(params: Dict, volumes: torch.Tensor, input_shape) -> torch.Tensor:
-    """[N, 1, D, H, W] -> embeddings [N, E], one forward."""
+def cnn3d_embed(params: Dict, volumes: torch.Tensor, input_shape, group=None) -> torch.Tensor:
+    """[N, 1, D, H, W] -> embeddings [N, E], one forward. With ``group``:
+    this rank's share of the rows in, every rank's embeddings out, in row
+    order."""
     with torch.no_grad():
-        return cnn3d_apply(params, volumes, input_shape)[1]
+        emb = cnn3d_apply(params, volumes, input_shape)[1]
+    return emb if group is None else gather_rows(emb, group)

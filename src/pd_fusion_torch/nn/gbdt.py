@@ -30,6 +30,12 @@ picks it on CUDA (two fits give bit-identical trees, and a fold-batched
 fit equals its folds' single fits) and ``scatter`` on the CPU, where
 ``index_add_`` adds in index order.
 
+Data parallelism (``data_group``, the data axis of the CV engine's
+``("fold", "data")`` mesh): each rank holds its rows of every fold, the
+per-level histograms, node totals and leaf sums are summed over the group
+(one all-reduce each), and every rank chooses the splits from the same
+reduced sums. Routing and the margins stay on the rank's own rows.
+
 Gain/leaf formulas are the standard second-order ones: gain = 1/2
 [GL^2/(HL+lam) + GR^2/(HR+lam) - G^2/(H+lam)], leaf value
 -lr * G/(H+lam), boosting from the base log-odds of the weighted label
@@ -42,6 +48,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from pd_fusion_torch.parallel.distributed import all_reduce
 from pd_fusion_torch.utils.device import get_device
 
 N_BINS = 256  # total codes per feature
@@ -174,24 +181,28 @@ def bin_onehots(bins: torch.Tensor, dtype) -> List[torch.Tensor]:
             for k in range(K)]
 
 
-def _node_sums(data: torch.Tensor, node: torch.Tensor, n_nodes: int, hist_mode: str):
+def _node_sums(data: torch.Tensor, node: torch.Tensor, n_nodes: int, hist_mode: str,
+               data_group=None):
     """Per-node sums of data [K, N, C] -> [K, n_nodes, C]. ``onehot`` makes
     one matmul per fold, the product a single fit of that fold makes, so a
-    fold-batched fit equals K single fits on the card too."""
+    fold-batched fit equals K single fits on the card too. Under
+    ``data_group`` the rank's sums are summed over the group."""
     K, _, C = data.shape
     if hist_mode == "onehot":
-        return torch.stack([_one_hot(node[k], n_nodes, data.dtype).T @ data[k]
-                            for k in range(K)])
-    flat = (node + torch.arange(K, device=node.device)[:, None] * n_nodes).reshape(-1)
-    out = torch.zeros((K * n_nodes, C), dtype=data.dtype, device=data.device)
-    return out.index_add_(0, flat, data.reshape(-1, C)).reshape(K, n_nodes, C)
+        out = torch.stack([_one_hot(node[k], n_nodes, data.dtype).T @ data[k]
+                           for k in range(K)])
+    else:
+        flat = (node + torch.arange(K, device=node.device)[:, None] * n_nodes).reshape(-1)
+        out = torch.zeros((K * n_nodes, C), dtype=data.dtype, device=data.device)
+        out = out.index_add_(0, flat, data.reshape(-1, C)).reshape(K, n_nodes, C)
+    return out if data_group is None else all_reduce(out, data_group)
 
 
-def _histograms(bins, data, node, n_nodes, hist_mode, onehots=None):
+def _histograms(bins, data, node, n_nodes, hist_mode, onehots=None, data_group=None):
     """Per-(node, feature, bin) sums of data=[g,h,w] -> [K, L, F, B, 3],
     plus per-node totals [K, L, 3]. ``bins``: int64 [K, N, F];
     ``onehots``: ``bin_onehots(bins)`` for the onehot lowering (made here
-    when not given)."""
+    when not given). Under ``data_group`` both are summed over the group."""
     K, n, f = bins.shape
     dt = data.dtype
     if hist_mode == "onehot":
@@ -202,16 +213,19 @@ def _histograms(bins, data, node, n_nodes, hist_mode, onehots=None):
             K, n, n_nodes * 3)
         hist = torch.stack([onehots[k] @ nw[k] for k in range(K)])  # [K, F*B, L*3]
         hist = hist.reshape(K, f, N_BINS, n_nodes, 3).permute(0, 3, 1, 2, 4)
-        return hist, _node_sums(data, node, n_nodes, hist_mode)
-    if hist_mode != "scatter":
+    elif hist_mode == "scatter":
+        fold = torch.arange(K, device=bins.device)[:, None, None]
+        f_range = torch.arange(f, device=bins.device)[None, None, :]
+        flat_ids = ((fold * n_nodes + node[:, :, None]) * f + f_range) * N_BINS + bins
+        data_b = data[:, :, None, :].expand(K, n, f, 3).reshape(-1, 3)
+        hist = torch.zeros((K * n_nodes * f * N_BINS, 3), dtype=dt, device=data.device)
+        hist = hist.index_add_(0, flat_ids.reshape(-1), data_b).reshape(
+            K, n_nodes, f, N_BINS, 3)
+    else:
         raise ValueError(f"unknown hist_mode {hist_mode!r} (use 'scatter' or 'onehot')")
-    fold = torch.arange(K, device=bins.device)[:, None, None]
-    f_range = torch.arange(f, device=bins.device)[None, None, :]
-    flat_ids = ((fold * n_nodes + node[:, :, None]) * f + f_range) * N_BINS + bins  # [K, N, F]
-    data_b = data[:, :, None, :].expand(K, n, f, 3).reshape(-1, 3)
-    hist = torch.zeros((K * n_nodes * f * N_BINS, 3), dtype=dt, device=data.device)
-    hist = hist.index_add_(0, flat_ids.reshape(-1), data_b).reshape(K, n_nodes, f, N_BINS, 3)
-    return hist, _node_sums(data, node, n_nodes, hist_mode)
+    if data_group is not None:
+        hist = all_reduce(hist.contiguous(), data_group)
+    return hist, _node_sums(data, node, n_nodes, hist_mode, data_group)
 
 
 def _route(bins, node, f_of_n, t_of_n, ml_of_n):
@@ -222,7 +236,7 @@ def _route(bins, node, f_of_n, t_of_n, ml_of_n):
 
 
 def _build_tree(bins, g, h, w, depth, lr, lam, min_child_weight, min_child_samples, hist_mode,
-                onehots=None):
+                onehots=None, data_group=None):
     """Grow one depth-wise tree per fold; returns (tree arrays, per-sample
     value [K, N])."""
     K, n, f = bins.shape
@@ -233,7 +247,7 @@ def _build_tree(bins, g, h, w, depth, lr, lam, min_child_weight, min_child_sampl
     feats, thrs, mls, gains_rec = [], [], [], []
     for level in range(depth):
         n_nodes = 1 << level
-        hist, tot = _histograms(bins, data, node, n_nodes, hist_mode, onehots)
+        hist, tot = _histograms(bins, data, node, n_nodes, hist_mode, onehots, data_group)
         miss = hist[:, :, :, MISSING_BIN, :]  # [K, L, F, 3]
         cum = torch.cumsum(hist[:, :, :, :N_VALUE_BINS, :], dim=3)  # [K, L, F, T, 3]
 
@@ -271,7 +285,7 @@ def _build_tree(bins, g, h, w, depth, lr, lam, min_child_weight, min_child_sampl
 
     # one 3-column sum: cols 0, 1 are the leaf-value stats, col 2 the leaf
     # cover for TreeSHAP
-    leaf_stats3 = _node_sums(data, node, 1 << depth, hist_mode)
+    leaf_stats3 = _node_sums(data, node, 1 << depth, hist_mode, data_group)
     denom = leaf_stats3[..., 1] + lam
     leaf_vals = torch.where(
         denom > 0, -lr * leaf_stats3[..., 0] / torch.where(denom > 0, denom, 1.0), 0.0)
@@ -311,6 +325,7 @@ def train_gbdt(
     min_child_samples: float,
     hist_mode: str = "scatter",
     n_rows: Optional[List[int]] = None,
+    data_group=None,
 ) -> Dict[str, torch.Tensor]:
     """Train the ensemble(s). The margin's dtype is ``y``'s (float32 in
     production; the tests run float64, where cross-implementation ulp
@@ -322,7 +337,10 @@ def train_gbdt(
     launches a round: the CPU's vectorised sigmoid rounds an element by its
     place in the tensor, so only then does each fold's ensemble there equal
     its unpadded single fit. CUDA's sigmoid does not depend on the place,
-    so ``fit_gbdt_stack`` passes it on the CPU only."""
+    so ``fit_gbdt_stack`` passes it on the CPU only.
+
+    ``data_group``: the rows are this rank's share of each fold; the sums
+    that choose the splits and the leaf values are the group's."""
     single, bins, (y, w) = _fold_batched(bins, y, w)
     K, n, _ = bins.shape
     base = torch.as_tensor(base_score, dtype=y.dtype, device=y.device).reshape(-1)
@@ -337,7 +355,7 @@ def train_gbdt(
             g = (p - y) * w
             h = p * (1.0 - p) * w
             tree, delta = _build_tree(bins, g, h, w, depth, lr, lam, min_child_weight,
-                                      min_child_samples, hist_mode, onehots)
+                                      min_child_samples, hist_mode, onehots, data_group)
             margin = margin + delta
             rounds.append(tree)
     trees = {k: torch.stack([t[k] for t in rounds], 1) for k in TREE_KEYS}

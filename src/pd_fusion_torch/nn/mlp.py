@@ -99,16 +99,19 @@ def mlp_apply(
 
 
 def bce_with_logits(logits: torch.Tensor, y: torch.Tensor,
-                    weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    weights: Optional[torch.Tensor] = None,
+                    total: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Binary cross-entropy on logits, averaged over the last axis (one
     value per fold for fold-batched inputs, a 0-d tensor otherwise).
 
     Padded samples (weight 0) contribute nothing; the weighted mean divides
     by the total weight, with the safe denominator ``where(t > 0, t, 1)``:
     an all-padding batch gives loss 0 with exactly-zero gradients.
+    ``total`` gives that denominator (one per fold) when ``weights`` holds
+    only this rank's rows of a batch sharded over a data group.
     """
     l = torch.logaddexp(logits, torch.zeros_like(logits)) - y * logits
     if weights is None:
         return torch.mean(l, dim=-1)
-    t = torch.sum(weights, dim=-1)
+    t = torch.sum(weights, dim=-1) if total is None else total
     return torch.sum(l * weights, dim=-1) / torch.where(t > 0, t, 1.0)

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from pd_fusion_torch.nn.trainer import make_optimizer
+from pd_fusion_torch.parallel.distributed import all_reduce, all_reduce_grads
 
 MoEParams = Dict[str, List[Dict[str, torch.Tensor]]]
 
@@ -105,30 +106,38 @@ def moe_apply(params: MoEParams, x_stack: torch.Tensor, mask: torch.Tensor) -> t
     return torch.sum(weights * expert_probs.transpose(-1, -2), dim=-1)
 
 
-def moe_loss(params, x_stack, mask, y, w: Optional[torch.Tensor] = None) -> torch.Tensor:
+def moe_loss(params, x_stack, mask, y, w: Optional[torch.Tensor] = None,
+             total: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Clipped BCE on probabilities, one value per fold: the unweighted
     mean without ``w``, else the weighted mean with the safe denominator
-    ``where(t > 0, t, 1)`` (padding rows have weight 0)."""
+    ``where(t > 0, t, 1)`` (padding rows have weight 0); ``total`` gives
+    ``t`` when the rows are one rank's share of a data group."""
     p = torch.clamp(moe_apply(params, x_stack, mask), 1e-7, 1.0 - 1e-7)
     l = -(y * torch.log(p) + (1.0 - y) * torch.log(1.0 - p))
     if w is None:
         return torch.mean(l, dim=-1)
-    t = torch.sum(w, dim=-1)
+    t = torch.sum(w, dim=-1) if total is None else total
     return torch.sum(l * w, dim=-1) / torch.where(t > 0, t, 1.0)
 
 
 def train_moe_folds(params: MoEParams, x_stack, mask, y, w: Optional[torch.Tensor], lr: float,
-                    epochs: int, weight_decay: float = 0.0) -> MoEParams:
+                    epochs: int, weight_decay: float = 0.0, data_group=None) -> MoEParams:
     """Full-batch Adam, one step per epoch, on a fold-batched stack (x
     [K, M, N, F], mask [K, N, M], y and w [K, N]). One Adam runs over the
     stacked leaves: fold k's loss touches only fold k's slice, so the sum
     of the per-fold losses gives every fold its own gradient and update.
-    ``add_decayed_weights(wd)`` ahead of Adam is Adam's ``weight_decay``."""
+    ``add_decayed_weights(wd)`` ahead of Adam is Adam's ``weight_decay``.
+    Under ``data_group`` the N axis holds this rank's rows: the loss
+    divides by the fold's global weight sum and the gradients are summed
+    over the group before each step (``w`` required)."""
     p = map_params(params, lambda v: v.detach().clone().requires_grad_(True))
     leaves = [layer[k] for part in ("experts", "router") for layer in p[part] for k in ("w", "b")]
     opt = make_optimizer(leaves, lr, weight_decay)
+    total = None if data_group is None else all_reduce(torch.sum(w, dim=-1), data_group)
     for _ in range(epochs):
-        grads = torch.autograd.grad(moe_loss(p, x_stack, mask, y, w).sum(), leaves)
+        grads = torch.autograd.grad(moe_loss(p, x_stack, mask, y, w, total).sum(), leaves)
+        if data_group is not None:
+            grads = all_reduce_grads(grads, data_group)
         for leaf, g in zip(leaves, grads):
             leaf.grad = g
         opt.step()

@@ -34,6 +34,18 @@ package's ``jax.checkpoint``); the running statistics are a functional
 output, so the recompute in the backward pass does not move them again.
 ``merge_bn_stats`` grafts them onto an optimizer's output, and
 ``bn_buffer_mask`` marks the leaves that weight decay may touch.
+
+Data-parallel training (``resnet_apply_train(group=)``, one process per
+card): every BN takes the statistics of the whole group's batch. Each
+rank sums ``sum(w * x)`` and its ``sum(w) * H * W``, one all-reduce gives
+the global mean, a second the global ``sum(w * (x - mean)^2)``: the two
+passes of the one-card formula over the union of the ranks' images. The
+all-reduce is ``torch.distributed.nn.functional.all_reduce``, whose
+backward all-reduces the gradient, so each rank's backward is its share
+of the gradient of the global-statistics BN. The rematerialized blocks
+re-run both all-reduces in the backward pass (every rank recomputes the
+same blocks in the same order), and the running statistics, a functional
+output of the forward, move once, by the global statistics.
 """
 import math
 from typing import Any, Dict
@@ -85,14 +97,28 @@ def _bn_batch(x, p):
                       p), p
 
 
-def _bn_train(x, p, momentum, w=None):
+def _bn_train(x, p, momentum, w=None, group=None):
     """Batch-statistic BN with the running-statistic EMA. Normalizes with the
     biased variance and moves the running variance by the unbiased one,
     ``n / (n - 1)`` with ``n = sum(w) * H * W``. With ``w`` ([N], 0/1) the
     statistics are those of the images whose weight is 1: the others are
-    normalized too, but add nothing to the statistics. -> (normalized, the
-    BN's params with the new running statistics, detached)."""
-    if w is None:
+    normalized too, but add nothing to the statistics. With ``group`` the
+    statistics are those of every rank's images. -> (normalized, the BN's
+    params with the new running statistics, detached)."""
+    if group is not None:
+        from pd_fusion_torch.parallel.distributed import all_reduce_differentiable as all_reduce
+
+        w = torch.ones(x.shape[0], dtype=x.dtype, device=x.device) if w is None else w
+        wb = w[:, None, None, None]
+        s = all_reduce(torch.cat([torch.sum(x * wb, dim=(0, 2, 3)),
+                                  (torch.sum(w) * (x.shape[2] * x.shape[3]))[None]]),
+                       group=group)
+        n = s[-1].detach()
+        mean = s[:-1] / n
+        var = all_reduce(torch.sum(torch.square(x - mean[:, None, None]) * wb, dim=(0, 2, 3)),
+                         group=group) / n
+        unbiased = var * (n / torch.clamp(n - 1.0, min=1.0))
+    elif w is None:
         mean = torch.mean(x, dim=(0, 2, 3))
         var = torch.var(x, dim=(0, 2, 3), correction=0)
         n = x.shape[0] * x.shape[2] * x.shape[3]
@@ -244,13 +270,15 @@ def resnet_apply(params, x, arch: str = "resnet18", train: bool = False):
 
 
 def resnet_apply_train(params, x, arch: str = "resnet18", momentum: float = 0.1,
-                       sample_weight=None):
+                       sample_weight=None, group=None):
     """Train-mode forward -> (embeddings, params with the running statistics
     moved by ``_bn_train``); blocks rematerialized. ``sample_weight`` ([N]
     0/1) restricts every BN's statistics to the weighted images, so a batch
-    padded to a fixed shape has the unpadded batch's statistics."""
+    padded to a fixed shape has the unpadded batch's statistics. With
+    ``group`` (a process group whose ranks hold the other images of the
+    batch) the statistics are the whole batch's."""
     def bn(y, p):
-        return _bn_train(y, p, momentum, sample_weight)
+        return _bn_train(y, p, momentum, sample_weight, group)
 
     return _forward(params, _nchw(x), arch, bn, remat=True)
 

@@ -28,6 +28,17 @@ Draw layouts (a stack adds a leading fold axis to each):
   with ``per_sample``;
 - ``dropout_keep``: one bool tensor per hidden layer, [E, n_batches, bs,
   h_i] for minibatch training, [E, n, h_i] for full-batch training.
+
+Data parallelism (``data_group``, the data axis of the CV engine's
+``("fold", "data")`` mesh): ``X``, ``y`` and ``w`` hold this rank's
+contiguous rows of each fold, all ranks of the group equally many, and
+every rank draws the draws of the whole fold (the same generators, or the
+same explicit draws), so a minibatch is the same global rows on every
+rank. Each rank takes the weighted loss of the batch's rows it owns over
+the batch's global weight sum (one all-reduce of the sums per epoch), and
+the gradients are summed over the group before each Adam step, so the
+replicas' params stay bitwise equal and follow the one-card run up to the
+order of the sums.
 """
 import math
 from typing import List, Optional, Sequence, Union
@@ -36,6 +47,7 @@ import torch
 
 from pd_fusion_torch.nn.mlp import Params, bce_with_logits, mlp_apply
 from pd_fusion_torch.ops.metrics import roc_auc
+from pd_fusion_torch.parallel.distributed import all_reduce, all_reduce_grads, row_span
 
 Generators = Union[torch.Generator, Sequence[torch.Generator]]
 
@@ -128,8 +140,10 @@ def _as_stack(params: Params, X: torch.Tensor):
     return single, p, leaves, unstack
 
 
-def _step(opt, leaves, loss):
+def _step(opt, leaves, loss, data_group=None):
     grads = torch.autograd.grad(loss, leaves)
+    if data_group is not None:
+        grads = all_reduce_grads(grads, data_group)
     for leaf, g in zip(leaves, grads):
         leaf.grad = g
     opt.step()
@@ -146,27 +160,34 @@ def fullbatch_impl(
     dropout: float = 0.2,
     weight_decay: float = 0.0,
     dropout_keep: Optional[Sequence[torch.Tensor]] = None,
+    data_group=None,
 ) -> Params:
     """One Adam step per epoch on the whole set (no minibatching, no early
     stopping): the unweighted mean loss when ``w is None``, the weighted
     mean with the safe denominator otherwise; fresh dropout draws each
-    epoch."""
+    epoch. Under ``data_group`` (``w`` required) the rows are this rank's
+    and the denominator is the fold's global weight sum."""
     single, p, leaves, unstack = _as_stack(params, X)
     if single:
         X, y, w = X[None], y[None], _lead(w)
+    lo, n = row_span(X.shape[1], data_group)
     if dropout_keep is None and dropout > 0.0:
         hidden = _hidden_widths(p)
         (dropout_keep,) = _stacked_draws(
-            lambda g: (draw_fullbatch(g, epochs, X.shape[1], hidden, dropout, X.device),),
+            lambda g: (draw_fullbatch(g, epochs, n, hidden, dropout, X.device),),
             generator, single)
     elif single:
         dropout_keep = _lead(dropout_keep)
     dropout_keep = _fold_axis_to(dropout_keep, 1)  # [E, K, n, h]
+    total = None
+    if data_group is not None:
+        dropout_keep = _each(dropout_keep, lambda d: d[:, :, lo: lo + X.shape[1]])
+        total = all_reduce(torch.sum(w, dim=-1), data_group)
     opt = make_optimizer(leaves, lr, weight_decay)
     for e in range(epochs):
         dk = None if dropout_keep is None else [d[e] for d in dropout_keep]
         logits = mlp_apply(p, X, dropout_rate=dropout, dropout_keep=dk)
-        _step(opt, leaves, bce_with_logits(logits, y, w).sum())
+        _step(opt, leaves, bce_with_logits(logits, y, w, total).sum(), data_group)
     return unstack()
 
 
@@ -191,6 +212,7 @@ def minibatch_moddrop_impl(
     perms: Optional[torch.Tensor] = None,
     moddrop_keep: Optional[torch.Tensor] = None,
     dropout_keep: Optional[Sequence[torch.Tensor]] = None,
+    data_group=None,
 ) -> Params:
     """Minibatch Adam with whole-modality dropout. Each epoch takes one
     permutation of the n rows; the index list is padded with row 0 to
@@ -198,11 +220,15 @@ def minibatch_moddrop_impl(
     batch, one Bernoulli(1 - rate) keep per modality shared by the whole
     batch (``per_sample=False``) or one per sample and modality
     (``per_sample=True``); the feature keep is ``1 - assign @ (1 - keep)``.
-    Pass all three draws or none."""
+    Pass all three draws or none. Under ``data_group`` each batch keeps its
+    global shape: the rows another rank owns enter at weight 0 (as row 0
+    of this rank's shard), and the loss divides by the batch's global
+    weight sum."""
     single, p, leaves, unstack = _as_stack(params, X)
     if single:
         X, y, w = X[None], y[None], w[None]
-    K, n = X.shape[0], X.shape[1]
+    K, n_own = X.shape[0], X.shape[1]
+    lo, n = row_span(n_own, data_group)
     dev = X.device
     n_batches = -(-n // batch_size)
     pad = n_batches * batch_size - n
@@ -227,15 +253,27 @@ def minibatch_moddrop_impl(
     opt = make_optimizer(leaves, lr, weight_decay)
     for e in range(epochs):
         perm = perms[e].to(dev, torch.long)
-        idx = torch.cat([perm, pad_idx], 1)
-        wpad = torch.cat([torch.gather(w, 1, perm), pad_w], 1).reshape(K, n_batches, batch_size)
+        total = None
+        if data_group is None:
+            idx = torch.cat([perm, pad_idx], 1)
+            wpad = torch.cat([torch.gather(w, 1, perm), pad_w], 1)
+        else:
+            own = (perm >= lo) & (perm < lo + n_own)
+            local = torch.where(own, perm - lo, 0)
+            idx = torch.cat([local, pad_idx], 1)
+            wpad = torch.cat([torch.where(own, torch.gather(w, 1, local), 0.0), pad_w], 1)
+        wpad = wpad.reshape(K, n_batches, batch_size)
+        if data_group is not None:
+            total = all_reduce(torch.sum(wpad, dim=-1), data_group)  # [K, nb]
         Xe = X[folds, idx].reshape(K, n_batches, batch_size, -1)
         ye = y[folds, idx].reshape(K, n_batches, batch_size)
         for b in range(n_batches):
             dk = None if dropout_keep is None else [d[e, b] for d in dropout_keep]
             logits = mlp_apply(p, Xe[:, b] * feat_keep[e, b], dropout_rate=dropout,
                                dropout_keep=dk)
-            _step(opt, leaves, bce_with_logits(logits, ye[:, b], wpad[:, b]).sum())
+            loss = bce_with_logits(logits, ye[:, b], wpad[:, b],
+                                   None if total is None else total[:, b])
+            _step(opt, leaves, loss.sum(), data_group)
     return unstack()
 
 

@@ -1,5 +1,5 @@
 """K-fold cross-validation engine (port of
-``pd_fusion/parallel/cv_engine.py``, without its multi-device mesh).
+``pd_fusion/parallel/cv_engine.py``).
 
 The JAX package trains all folds as one ``vmap``-ed program over a fold
 axis. The port keeps that program's inputs exactly: every fold's training
@@ -33,6 +33,16 @@ fit per fold. ``isotonic_arms`` counts which arm each calibrated run took.
 ``run_parallel_cv`` also takes each fold's masks and generators
 explicitly (``fold_masks``, ``fold_generators``): the fused multi-seed
 sweep (``parallel/seed_sweep.py``) stacks several seeds' folds that way.
+
+Several cards (``parallel/distributed.py``, one process per card under
+``torchrun``): the MLP families and the device GBDT train on a
+``("fold", "data")`` mesh chosen by the JAX package's rule (``_cv_mesh``):
+each rank trains its folds on its rows of them (``_shard_cv_inputs``), the
+data axis sums gradients or histograms, the trained folds are gathered in
+fold order on every rank, and evaluation follows unsharded, as the JAX
+engine's mesh branch. ``cv_mesh: off`` keeps every rank on the one-card
+path; with one rank there is no mesh. The MoE and MIL branches stay
+unmeshed, as in the JAX package: every rank runs them whole.
 """
 import logging
 import os
@@ -53,6 +63,7 @@ from pd_fusion_torch.data.schema import MODALITIES, TARGET_COL
 from pd_fusion_torch.data.splits import get_subset_masks
 from pd_fusion_torch.ops import isotonic as dev_isotonic
 from pd_fusion_torch.ops import metrics as dev_metrics
+from pd_fusion_torch.parallel import distributed
 from pd_fusion_torch.utils.device import get_device
 from pd_fusion_torch.utils.seed import fresh_generator
 
@@ -268,6 +279,85 @@ def _fold_results(packed, scenarios, group_col, val_dfs, yva_list):
 
 
 # ---------------------------------------------------------------------------
+# the ("fold", "data") mesh
+# ---------------------------------------------------------------------------
+
+
+def _cv_mesh_shape(K: int, N: int, n_dev: int):
+    """The JAX engine's rule (``pd_fusion/parallel/cv_engine.py:491-515``)
+    over ``n_dev`` ranks -> (fold, data), or None: fold is the largest
+    divisor of K that divides ``n_dev``, data the rest, 1 when N does not
+    divide by it; a 1x1 mesh is None."""
+    if n_dev <= 1:
+        return None
+    fold_dim = 1
+    for cand in range(min(K, n_dev), 0, -1):
+        if K % cand == 0 and n_dev % cand == 0:
+            fold_dim = cand
+            break
+    data_dim = n_dev // fold_dim
+    if data_dim > 1 and N % data_dim != 0:
+        data_dim = 1  # ragged rows: the data axis stays unsharded
+    if fold_dim * data_dim <= 1:
+        return None
+    return fold_dim, data_dim
+
+
+def _cv_mesh(K: int, N: int, config=None):
+    """The (fold, data) mesh of a K-fold stack of N rows over this process
+    group, or None (one rank, a 1x1 mesh, or ``cv_mesh: off``). Every rank
+    calls it (the mesh's sub-groups are made collectively)."""
+    if config is not None and config.get("cv_mesh", "auto") == "off":
+        return None
+    shape = _cv_mesh_shape(K, N, distributed.world_size())
+    if shape is None:
+        return None
+    mesh = distributed.fold_data_mesh(*shape, get_device().type)
+    logger.info(f"parallel CV sharded over mesh {{'fold': {shape[0]}, 'data': {shape[1]}}}")
+    return mesh
+
+
+def _mesh_slices(mesh, K: int, N: int):
+    """(this rank's folds, its rows of them) of a K-fold stack of N rows."""
+    return (distributed.local_slice(K, mesh.fold, mesh.fold_index),
+            distributed.local_slice(N, mesh.data, mesh.data_index))
+
+
+def _shard_cv_inputs(mesh, params_stack, arrays, gens):
+    """This rank's folds of the stacked params and generators, and its rows
+    of those folds of each [K, N, ...] array."""
+    folds, rows = _mesh_slices(mesh, len(gens), arrays[0].shape[1])
+    params = [{k: v[folds] for k, v in layer.items()} for layer in params_stack]
+    return params, [a[folds, rows] for a in arrays], list(gens[folds])
+
+
+def _data_group(mesh):
+    return mesh.data_group if mesh.data > 1 else None
+
+
+def _check_data_replicas(tensors, mesh, what):
+    """Every rank of the data axis holds bitwise the same ``tensors`` (its
+    replicas computed them from the same reduced sums): raise if not."""
+    if mesh.data <= 1:
+        return
+    for t in tensors:
+        for other in distributed.all_gather(t, mesh.data_group):
+            if not torch.equal(other, t):
+                raise RuntimeError(f"{what}: the data axis's replicas disagree")
+
+
+def _from_mesh(mesh, local, like):
+    """The trained folds: gathered in fold order on the mesh's ranks, then
+    rank 0's copy on the ranks past the mesh. ``local``: this rank's folds,
+    a flat list of tensors; ``like()``: tensors of the whole stack's shapes
+    for a rank past the mesh to receive into."""
+    full = [distributed.gather_folds(t, mesh) for t in local] if mesh.member else like()
+    if not mesh.covers_world:
+        full = [distributed.broadcast(t, 0) for t in full]
+    return full
+
+
+# ---------------------------------------------------------------------------
 # MLP families: folds as a batch dimension
 # ---------------------------------------------------------------------------
 
@@ -394,17 +484,37 @@ def _run_parallel_cv_mlp(config, folds, masks, scenarios, group_col, calib_dfs,
     wd = float(params_cfg.get("weight_decay", 0.0))
     if model_type == "fusion_moddrop":
         assign_md, _ = _assignment_matrix(mod_dims)
-        trained = minibatch_moddrop_impl(
-            params_stack, t(X_stack), t(y_stack), t(w_tr), t(assign_md), train_gens, lr, epochs,
-            # clamped to the PADDED width, as the JAX program's one static
-            # batch size for all folds
-            min(int(params_cfg.get("batch_size", 32)), X_stack.shape[1]),
-            dropout, wd, float(params_cfg.get("moddrop_rate", 0.2)),
-            bool(params_cfg.get("moddrop_per_sample", False)),
-        )
+
+        def train(p, X, y, w, gens, data_group=None):
+            return minibatch_moddrop_impl(
+                p, X, y, w, t(assign_md), gens, lr, epochs,
+                # clamped to the PADDED width, as the JAX program's one static
+                # batch size for all folds
+                min(int(params_cfg.get("batch_size", 32)), X_stack.shape[1]),
+                dropout, wd, float(params_cfg.get("moddrop_rate", 0.2)),
+                bool(params_cfg.get("moddrop_per_sample", False)), data_group=data_group,
+            )
     else:
-        trained = fullbatch_impl(params_stack, t(X_stack), t(y_stack), t(w_tr), train_gens, lr,
-                                 epochs, dropout, wd)
+        def train(p, X, y, w, gens, data_group=None):
+            return fullbatch_impl(p, X, y, w, gens, lr, epochs, dropout, wd,
+                                  data_group=data_group)
+
+    mesh = _cv_mesh(K, X_stack.shape[1], config)
+    if mesh is None:
+        trained = train(params_stack, t(X_stack), t(y_stack), t(w_tr), train_gens)
+    else:
+        # sharded path: training runs on the mesh; eval follows unsharded
+        local = None
+        if mesh.member:
+            p, arrays, gens_own = _shard_cv_inputs(mesh, params_stack,
+                                                   [X_stack, y_stack, w_tr], train_gens)
+            local = train(p, *[t(a) for a in arrays], gens_own, _data_group(mesh))
+            _check_data_replicas([v for layer in local for v in layer.values()], mesh,
+                                 "MLP CV training")
+        flat = _from_mesh(mesh, local and [v for layer in local for v in layer.values()],
+                          lambda: [v for layer in params_stack for v in layer.values()])
+        it = iter(flat)
+        trained = [{k: next(it) for k in layer} for layer in params_stack]
 
     # ---- all folds x scenarios: one forward, one packed fetch -------------
     nv_max = max(a.shape[1] for a in Xva_scen_list)
@@ -559,6 +669,7 @@ def _run_parallel_cv_gbdt(config, folds, masks, scenarios, group_col, calib_dfs,
     calibration inputs are the un-zeroed matrix."""
     from pd_fusion_torch.models.unimodal_gbdt import _DEVICE_PARAM_KEYS
     from pd_fusion_torch.nn.gbdt import (
+        TREE_KEYS,
         DeviceHistGBDT,
         bin_features,
         compute_base_score,
@@ -625,7 +736,22 @@ def _run_parallel_cv_gbdt(config, folds, masks, scenarios, group_col, calib_dfs,
 
     t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
     base = t(np.array(bases, np.float32))
-    trees = train_gbdt(t(bins_tr), t(y_tr), t(w_tr), base, **proto.hparams())
+    mesh = _cv_mesh(K, n_max, config)
+    if mesh is None:
+        trees = train_gbdt(t(bins_tr), t(y_tr), t(w_tr), base, **proto.hparams())
+    else:
+        # sharded path: the per-level sums reduce over the data axis, every
+        # data rank grows the same trees from them, and the folds' trees are
+        # gathered before the unsharded scoring
+        local = None
+        if mesh.member:
+            own, rows = _mesh_slices(mesh, K, n_max)
+            local = train_gbdt(t(bins_tr[own, rows]), t(y_tr[own, rows]), t(w_tr[own, rows]),
+                               base[own], **proto.hparams(), data_group=_data_group(mesh))
+            _check_data_replicas([local[k] for k in TREE_KEYS], mesh, "GBDT CV training")
+        flat = _from_mesh(mesh, local and [local[k] for k in TREE_KEYS],
+                          lambda: _empty_trees(K, proto.n_estimators, proto.max_depth, device))
+        trees = dict(zip(TREE_KEYS, flat))
     probs = torch.sigmoid(predict_margin(trees, t(bins_ev), base, depth=proto.max_depth))
     probs_scen = probs[:, : S * nv_max].reshape(K, S, nv_max)
     if do_calibrate:
@@ -635,6 +761,16 @@ def _run_parallel_cv_gbdt(config, folds, masks, scenarios, group_col, calib_dfs,
         packed = _metrics_from_probs_packed(probs_scen, t(yv_rep), t(wv_rep))
     return _fold_results(packed.cpu().numpy(), scenarios, group_col, [v for _, v in folds],
                          yva_list)
+
+
+def _empty_trees(K, n_rounds, depth, device):
+    """Uninitialised [K, R, ...] tree arrays in ``TREE_KEYS`` order (what a
+    rank past the mesh receives the trained ensembles into)."""
+    split = (K, n_rounds, depth, 1 << (depth - 1))
+    leaves = (K, n_rounds, 1 << depth)
+    return [torch.empty(shape, dtype=dt, device=device) for shape, dt in (
+        (split, torch.int32), (split, torch.int32), (split, torch.bool),
+        (split, torch.float32), (leaves, torch.float32), (leaves, torch.float32))]
 
 
 # ---------------------------------------------------------------------------

@@ -22,6 +22,10 @@ unequal size pad to the widest fold of all seeds (the MLP batch size
 clamps to that width, the MIL batch size to the smallest fold's), so a
 sweep over equal folds reproduces each standalone run and one over ragged
 folds (group K-fold) need not.
+
+Under ``torchrun`` the stacked CV shards over the (fold, data) mesh like
+any CV (``parallel/cv_engine.py``); rank 0 names the sweep directory and
+writes the run directories.
 """
 import copy
 import datetime
@@ -32,6 +36,7 @@ import numpy as np
 import pandas as pd
 
 from pd_fusion_torch.data.splits import get_group_kfold_splits, get_kfold_splits, get_subset_masks
+from pd_fusion_torch.parallel import distributed
 from pd_fusion_torch.parallel.cv_engine import run_parallel_cv, supports_parallel_cv
 from pd_fusion_torch.paths import RUNS_DIR
 from pd_fusion_torch.utils.device import get_device
@@ -71,9 +76,12 @@ def run_multi_seed_cv(
     device = get_device()
     model_type = config["model_type"]
     if sweep_dir is None:
-        sweep_dir = RUNS_DIR / f"fused_sweep_{datetime.datetime.now().strftime('%Y%m%d_%H%M%S')}"
+        sweep_dir = RUNS_DIR / distributed.broadcast_object(
+            f"fused_sweep_{datetime.datetime.now().strftime('%Y%m%d_%H%M%S')}")
     sweep_dir = Path(sweep_dir)
-    sweep_dir.mkdir(parents=True, exist_ok=True)
+    writes = distributed.is_primary()
+    if writes:
+        sweep_dir.mkdir(parents=True, exist_ok=True)
 
     group_col = config.get("group_col") or config.get("cv_group_col")
 
@@ -117,19 +125,22 @@ def run_multi_seed_cv(
         lo, hi = seed_slices[seed]
         dataset_name, cfg_s = seed_meta[seed]
         run_dir = sweep_dir / f"{model_type}_s{seed}"
-        run_dir.mkdir(parents=True, exist_ok=True)
-        _save_run_provenance(run_dir, cfg_s, eval_config, dataset_name, synthetic, {"seed": seed})
+        if writes:
+            run_dir.mkdir(parents=True, exist_ok=True)
+            _save_run_provenance(run_dir, cfg_s, eval_config, dataset_name, synthetic,
+                                 {"seed": seed})
 
         seed_metrics = []
         for i, fi in enumerate(range(lo, hi)):
             res = dict(metrics_all[fi])
             res["fold"] = i + 1
             seed_metrics.append(res)
-            save_yaml(res, run_dir / f"results_fold_{i + 1}.yaml")
-            y_true, y_prob = fold_preds[fi]
-            pd.DataFrame(
-                {"y_true": y_true.astype(int), "y_prob": y_prob, "fold": i + 1}
-            ).to_csv(run_dir / f"preds_fold_{i + 1}_full_observation.csv", index=False)
+            if writes:
+                save_yaml(res, run_dir / f"results_fold_{i + 1}.yaml")
+                y_true, y_prob = fold_preds[fi]
+                pd.DataFrame(
+                    {"y_true": y_true.astype(int), "y_prob": y_prob, "fold": i + 1}
+                ).to_csv(run_dir / f"preds_fold_{i + 1}_full_observation.csv", index=False)
 
         aggregated = {}
         scenario_names = [kk for kk in seed_metrics[0] if kk != "fold"]
@@ -141,7 +152,8 @@ def run_multi_seed_cv(
                     "mean": float(np.mean(values)),
                     "std": float(np.std(values)),
                 }
-        save_yaml(aggregated, run_dir / "results_aggregated.yaml")
+        if writes:
+            save_yaml(aggregated, run_dir / "results_aggregated.yaml")
         out[seed] = aggregated
 
     logger.info(f"fused sweep complete: {sweep_dir}")

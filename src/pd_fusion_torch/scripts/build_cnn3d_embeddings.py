@@ -18,8 +18,14 @@ from a CPU generator seeded with ``--seed``, the permutations from a
 generator on the card seeded with ``--seed + 1``. Runs on the card unless
 ``PD_FUSION_TORCH_DEVICE`` names another device.
 
-The JAX script's data-mesh branch (several devices) is not ported (ROADMAP
-Queue 1 item 15).
+Under ``torchrun`` (one process per card; JAX ``:88-97`` shards the
+volume batch over a data mesh) each rank reads and resizes its contiguous
+share of the manifest's volumes, the ranks train data-parallel
+(``train_cnn3d(group=)``), the embeddings are gathered in manifest order,
+and rank 0 writes the files.
+
+    torchrun --standalone --nproc-per-node N -m \
+        pd_fusion_torch.scripts.build_cnn3d_embeddings --manifest <csv> ...
 """
 import argparse
 import json
@@ -72,6 +78,14 @@ def main(argv=None) -> dict:
     """-> {"path": the parquet, "cached": whether it was there already,
     "stages": seconds spent in read (NIfTI read, resize and z-score), init,
     train, embed and write}."""
+    from pd_fusion_torch.parallel import distributed
+
+    args = parse_args(argv)
+    with distributed.process_group():
+        return _build(args)
+
+
+def _build(args) -> dict:
     import pandas as pd
     import torch
 
@@ -79,12 +93,13 @@ def main(argv=None) -> dict:
     from pd_fusion_torch.imaging.pipeline import VolumePrefetcher
     from pd_fusion_torch.nn.cnn3d import cnn3d_embed, cnn3d_init, train_cnn3d
     from pd_fusion_torch.ops.image import resize3d, zscore_volume
-    from pd_fusion_torch.utils.device import get_device
+    from pd_fusion_torch.parallel import distributed
+    from pd_fusion_torch.utils.device import get_device, make_data_mesh, shard_rows
 
-    args = parse_args(argv)
     manifest_path = Path(args.manifest)
     out_dir = Path(args.out_dir)
-    out_dir.mkdir(parents=True, exist_ok=True)
+    if distributed.is_primary():
+        out_dir.mkdir(parents=True, exist_ok=True)
     cfg = config_from_args(args)
     stem = f"embeddings_{hash_file(manifest_path)}_{hash_config(cfg)}"
     emb_path, meta_path = out_dir / f"{stem}.parquet", out_dir / f"{stem}.json"
@@ -97,10 +112,12 @@ def main(argv=None) -> dict:
     t0 = time.perf_counter()
     df = pd.read_csv(manifest_path)
     shape = tuple(args.target_shape)
-    vols = [None] * len(df)
+    mesh = make_data_mesh()  # None on one card
+    group = None if mesh is None else mesh.data_group
+    paths = shard_rows([Path(p) for p in df["t1wbrain_path"]], mesh)
+    vols = [None] * len(paths)
     with torch.no_grad():
-        for i, raw in VolumePrefetcher([Path(p) for p in df["t1wbrain_path"]], read_nifti,
-                                       depth=4):
+        for i, raw in VolumePrefetcher(paths, read_nifti, depth=4):
             vols[i] = zscore_volume(resize3d(torch.from_numpy(raw).to(dev), shape))
     volumes = torch.stack(vols)[:, None]  # [N, 1, D, H, W]
     del vols
@@ -111,10 +128,12 @@ def main(argv=None) -> dict:
     t0 = _stage(dev, stages, "init_s", t0)
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
     params = train_cnn3d(params, volumes, args.lr, shape, args.epochs,
-                         min(args.batch_size, len(df)), generator=gen)
+                         min(args.batch_size, len(df)), generator=gen, group=group)
     t0 = _stage(dev, stages, "train_s", t0)
-    emb = cnn3d_embed(params, volumes, shape).cpu().numpy()
+    emb = cnn3d_embed(params, volumes, shape, group=group).cpu().numpy()
     t0 = _stage(dev, stages, "embed_s", t0)
+    if not distributed.is_primary():
+        return {"path": emb_path, "cached": False, "stages": stages}
 
     emb_df = pd.DataFrame(emb, columns=[f"mri_cnn_{i}" for i in range(emb.shape[1])])
     emb_df["subject_id"] = df["subject_id"].values

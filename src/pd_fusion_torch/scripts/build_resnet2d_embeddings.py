@@ -60,9 +60,12 @@ def config_from_args(args) -> dict:
 
 def main(argv=None):
     from pd_fusion_torch.data.openneuro_features import build_resnet2d_embeddings
+    from pd_fusion_torch.parallel import distributed
 
     args = parse_args(argv)
-    df = build_resnet2d_embeddings(Path(args.manifest), Path(args.out_dir), config_from_args(args))
+    with distributed.process_group(host=True):
+        df = build_resnet2d_embeddings(Path(args.manifest), Path(args.out_dir),
+                                       config_from_args(args))
     print(f"Built {len(df)} subject embeddings -> {args.out_dir}")
     return df
 

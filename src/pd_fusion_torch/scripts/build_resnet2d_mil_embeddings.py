@@ -7,7 +7,9 @@ Keeps [n_slices, emb_dim] per subject, slices one or several axes, and
 writes the ``.npz`` {embeddings, subject_id, session, label} and its meta
 JSON under the content-addressed name that a data config with the same
 settings looks up, in either package. The embed runs on the card unless
-``PD_FUSION_TORCH_DEVICE`` names another device.
+``PD_FUSION_TORCH_DEVICE`` names another device. Under ``torchrun`` each
+rank embeds its share of the subjects (``imaging/pipeline.py``) and rank 0
+writes the files.
 """
 import argparse
 from pathlib import Path
@@ -75,10 +77,12 @@ def config_from_args(args) -> dict:
 
 def main(argv=None):
     from pd_fusion_torch.data.openneuro_features import build_resnet2d_mil_embeddings
+    from pd_fusion_torch.parallel import distributed
 
     args = parse_args(argv)
-    out_path = build_resnet2d_mil_embeddings(Path(args.manifest), Path(args.out_dir),
-                                             config_from_args(args))
+    with distributed.process_group(host=True):
+        out_path = build_resnet2d_mil_embeddings(Path(args.manifest), Path(args.out_dir),
+                                                 config_from_args(args))
     print(f"Saved MIL embeddings to {out_path}")
     return out_path
 

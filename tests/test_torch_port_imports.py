@@ -52,6 +52,8 @@ SWEEP_MODULES = ("parallel.seed_sweep", "analysis.aggregate_results", "analysis.
                  "scripts.submit_dual_h200", "scripts.ppmi_stress_test",
                  "scripts.ppmi_imaging_upgrade", "utils.torch_utils",
                  "scripts.export_backbone_weights", "scripts.verify_loaders")
+# the multi-device tier
+MULTICHIP_MODULES = ("parallel.distributed", "parallel.dryrun")
 
 
 def test_port_imports_without_jax_or_jax_package():
@@ -62,11 +64,11 @@ def test_port_imports_without_jax_or_jax_package():
     ).stdout.strip()
     count, rest = out.split(maxsplit=1)
     bad, names = rest.split("] ", 1)
-    assert int(count) >= 83  # every module of the port was imported
+    assert int(count) >= 85  # every module of the port was imported
     assert bad + "]" == "[]"
     assert ({f"pd_fusion_torch.{m}"
              for m in SLICE_MODULES + EMBED_MODULES + FT_MODULES + VOLUME_MODULES + STUDY_MODULES
-             + SWEEP_MODULES}
+             + SWEEP_MODULES + MULTICHIP_MODULES}
             <= set(names.split()))
 
 

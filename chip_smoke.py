@@ -244,11 +244,36 @@ Phases; any failure exits non-zero before the final line:
    wall in the child beside phase 7's. The walls of (b) and (c) are
    printed as "2 ranks sharing one card over gloo" beside the card's name
    and power limit: findings, not claims;
+39. (after 37, before 38's lines) the same result on every run: every
+   device program of the paths above (``utils/determinism_checks.py``:
+   the metrics and ECE at the bootstrap's and the bench frame's shapes,
+   the tabular and fused-sweep trainers, device isotonic, the MoE trainer,
+   the GBDT's two lowerings and ``predict_margin``, the MIL trainer with K1,
+   a ResNet-50 flush, the fine-tune step frozen and not, the CNN3D step,
+   the simple statistics, the logistic fit, the early-stopped MLP, a stress
+   fold, a TreeSHAP chunk), each at its phase's width, twice from the same
+   inputs and state, then once under
+   ``torch.use_deterministic_algorithms(True, warn_only=True)`` for the
+   ops PyTorch flags: one line a program (equal twice, the largest gap,
+   the flagged ops, its source ``file:line``), K1 counted; then one fresh
+   child (``chip_smoke.py --determinism-child``) runs the bench CV frame
+   and the MIL CV on phase 16's bags through the CLI, the MIL bag build and
+   the CNN3D build again, each held bit for bit against phases 7, 17, 16
+   and 25 (results, fold probabilities, ``.npz`` bags, ``.parquet``
+   embeddings), K1 counted in the MIL CV. A program listed as deterministic
+   that differs between its two runs fails the smoke; the two by design
+   (``hist_mode: scatter``, the unfrozen fine-tune step through cuDNN's
+   backward kernels) are printed with their gaps. Then (c) what the
+   repairs replaced: the earlier ECE (``scatter_add``) 20 times on one
+   input and the CNN3D step through cuDNN's backward-data kernel twice,
+   the unfrozen fine-tune step under cuDNN's deterministic algorithms
+   twice, and each against the current form in turns (ECE and the six
+   metrics at the bootstrap's shape, the CNN3D step, the fine-tune step);
 38. a JSON line with each device program's host and device time and
-   launches a step; one with each path's wall time, busy share and AUC;
-   one with each kernel's launches (by path), error and times (B=16 and
-   B=80, and the launch floor); the card line again; then ``{"ok": true,
-   "device": {...}}`` as the last line.
+   launches a step; one with each path's wall time, busy share and AUC
+   (phase 39's records among them); one with each kernel's launches (by
+   path), error and times (B=16 and B=80, and the launch floor); the card
+   line again; then ``{"ok": true, "device": {...}}`` as the last line.
 
 Needs a CUDA device and the repo around it; it imports nothing of JAX.
 """
@@ -260,6 +285,7 @@ import json
 import math
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -1939,6 +1965,20 @@ def step_program(torch, cnn3d, cfg, lr):
     return rec
 
 
+def simple_data_config(yaml) -> dict:
+    """The data config of ``configs/openneuro_ds001907_simple.yaml``."""
+    return yaml.safe_load((ROOT / yaml.safe_load(SIMPLE_CONFIG.read_text())["data_config"])
+                          .read_text())
+
+
+def cnn3d_argv(cnn_cfg, manifest: Path, out_dir: Path):
+    """The CNN3D builder script's flags for a data config's ``cnn_config``."""
+    return ["--manifest", str(manifest), "--out-dir", str(out_dir),
+            "--target-shape", *map(str, cnn_cfg["target_shape"]),
+            "--embedding-dim", str(cnn_cfg["embedding_dim"]), "--epochs", str(cnn_cfg["epochs"]),
+            "--batch-size", str(cnn_cfg["batch_size"]), "--lr", str(cnn_cfg["lr"])]
+
+
 def run_volume_path(torch, np, yaml, ap, cli, tmp: Path, manifest: Path):
     """Phases 23-27: the simple statistics card vs CPU and timed; one CNN3D
     step card vs CPU, timed at the data config's and the runbook's widths,
@@ -1961,8 +2001,7 @@ def run_volume_path(torch, np, yaml, ap, cli, tmp: Path, manifest: Path):
     from pd_fusion_torch.paths import DEV_DATA_ENV
     from pd_fusion_torch.scripts import build_cnn3d_embeddings as script
 
-    data_cfg = yaml.safe_load((ROOT / yaml.safe_load(SIMPLE_CONFIG.read_text())["data_config"])
-                              .read_text())
+    data_cfg = simple_data_config(yaml)
     feat_cfg, cnn_cfg = data_cfg["feature_config"], data_cfg["cnn_config"]
     if {**cnn_cfg, "target_shape": tuple(cnn_cfg["target_shape"])} != {
             **cc.CNN_CONFIG, "epochs": cnn_cfg["epochs"]}:
@@ -2044,10 +2083,7 @@ def run_volume_path(torch, np, yaml, ap, cli, tmp: Path, manifest: Path):
     # phase 25: the CNN3D builder script on the 96 volumes with the data
     # config's cnn_config, then the CLI's CV on its embeddings
     cache = tmp / "cnn3d_cache"
-    argv = ["--manifest", str(manifest), "--out-dir", str(cache),
-            "--target-shape", *map(str, cnn_cfg["target_shape"]),
-            "--embedding-dim", str(E), "--epochs", str(cnn_cfg["epochs"]),
-            "--batch-size", str(cnn_cfg["batch_size"]), "--lr", str(cnn_cfg["lr"])]
+    argv = cnn3d_argv(cnn_cfg, manifest, cache)
     if script.config_from_args(script.parse_args(argv)) != cnn_cfg:
         raise RuntimeError(f"the script's flags do not give the data config's {cnn_cfg}")
     torch.cuda.synchronize()
@@ -3246,15 +3282,295 @@ def run_dist_tier(torch, np, yaml, tmp: Path, manifest: Path, bench_ref, card):
     return rec, sum(dry["k1_launches"])
 
 
+# ---------------------------------------------------------------------------
+# every device program run twice; the CLI's runs again in a fresh process
+# (phase 39)
+# ---------------------------------------------------------------------------
+
+def print_determinism(row):
+    expect = "deterministic" if row["deterministic"] else f"by design: {row['note']}"
+    flagged = ", ".join(row["flagged"]) if isinstance(row["flagged"], list) else row["flagged"]
+    print(f"phase 39: {row['name']}: equal twice {'yes' if row['equal'] else 'no'}, max gap "
+          f"{row['gap']:.3e}, flagged {flagged or 'none'}, {row['source']}; {row['width']}; "
+          f"{expect}; {row['two_runs_s']:.3f} s")
+
+
+TURNS_PROGRAMS = ("cnn3d_train_step", "ft_step_unfrozen")  # phase 39(c) times them again
+
+
+def determinism_programs(torch, ap, progs=None, kept=None):
+    """Phase 39(a): every device program of the port's paths twice from the
+    same inputs and state, then once under the deterministic mode for the
+    ops PyTorch flags (``utils/determinism_checks.py``). K1's counts are
+    zeroed before and read after; the programs of ``TURNS_PROGRAMS`` are
+    kept in ``kept``. Raises, after printing every program's line, when a
+    program listed as deterministic gave two different results. ->
+    (records, K1 launches)."""
+    from pd_fusion_torch.utils import determinism_checks as dc
+
+    def keeping(programs):
+        for prog in programs:
+            if kept is not None and prog.name in TURNS_PROGRAMS:
+                kept[prog.name] = prog
+            yield prog
+
+    ap.reset_launch_counts()
+    rows = dc.audit(keeping(dc.programs(DEV) if progs is None else progs))
+    k1 = dict(ap.launch_counts)
+    for row in rows:
+        print_determinism(row)
+    if DEV == "cuda" and progs is None and (k1["kernel"] <= 0 or k1["plain"] != 0):
+        raise RuntimeError(f"phase 39's MIL programs did not run K1 alone: {k1}")
+    failed = dc.failures(rows)
+    if failed:
+        raise RuntimeError("programs listed as deterministic differ between two runs: "
+                           + "; ".join(failed))
+    return rows, k1["kernel"]
+
+
+@contextlib.contextmanager
+def patched(module, name, value):
+    """``module.name`` is ``value`` inside the block."""
+    before = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, before)
+
+
+@contextlib.contextmanager
+def deterministic_cudnn(torch):
+    """cuDNN limited to its deterministic algorithms inside the block."""
+    with patched(torch.backends.cudnn, "deterministic", True):
+        yield
+
+
+def forms_in_turns(torch, forms, fn, make_state, reps=5, rounds=2):
+    """``fn(make_state())`` under each of ``forms`` (name -> context
+    factory), in turns (a, b, b, a, a, b, ...: ``rounds`` blocks each): a
+    warm-up call, then ``reps`` calls a block, each between its own CUDA
+    events with its state built before them. -> name -> [median ms of
+    each block]."""
+    times = {name: [] for name in forms}
+    order = list(forms)
+    for name in [n for r in range(rounds) for n in (order if r % 2 == 0 else order[::-1])]:
+        with forms[name]():
+            fn(make_state())
+            ms = []
+            for _ in range(reps):
+                state = make_state()
+                ms.append(_median_event_ms(torch, lambda: fn(state), 1))  # noqa: B023
+            times[name].append(sorted(ms)[reps // 2])
+    return times
+
+
+def determinism_turns(torch, kept):
+    """Phase 39(c): what the repairs replaced, and the by-design step's
+    deterministic form. The port's earlier ECE (``scatter_add``) 20 times
+    on one input and its CNN3D step (cuDNN's backward-data kernel) twice,
+    to show the fault; the unfrozen fine-tune step under cuDNN's
+    deterministic algorithms twice. Then each against the current form in
+    turns (``forms_in_turns``): ECE and the bootstrap's six metrics at
+    ``BOOT_SHAPE``, the CNN3D step, the unfrozen fine-tune step. ->
+    record."""
+    from pd_fusion_torch.analysis.sweep_checks import BOOT_SHAPE, bootstrap_inputs
+    from pd_fusion_torch.nn import cnn3d
+    from pd_fusion_torch.ops import metrics
+    from pd_fusion_torch.utils import determinism_checks as dc
+
+    y, p = (t.to(DEV) for t in bootstrap_inputs(*BOOT_SHAPE))
+    earlier_ece = [dc.scatter_ece(y, p).cpu().numpy() for _ in range(20)]
+    rec = {"scatter_ece_distinct_of_20": len({e.tobytes() for e in earlier_ece}),
+           "scatter_ece_gap": max(dc.gap(earlier_ece[0], e) for e in earlier_ece)}
+
+    def cudnn_data_grad(g, w):
+        shape = (g.shape[0], w.shape[1], *g.shape[2:])
+        return torch.nn.grad.conv3d_input(shape, w, g, padding=1)
+
+    forms = {
+        "ece": {"fixed_order": contextlib.nullcontext,
+                "scatter_add": lambda: patched(metrics, "expected_calibration_error",
+                                               dc.scatter_ece)},
+        "cnn3d_train_step": {"forward_conv_data_grad": contextlib.nullcontext,
+                             "cudnn_backward_data": lambda: patched(
+                                 cnn3d, "_conv3x3_data_grad", cudnn_data_grad)},
+        "ft_step_unfrozen": {"cudnn_default": contextlib.nullcontext,
+                             "cudnn_deterministic": lambda: deterministic_cudnn(torch)},
+    }
+    with forms["cnn3d_train_step"]["cudnn_backward_data"]():
+        twice = dc.run_twice(kept["cnn3d_train_step"].fn, kept["cnn3d_train_step"].make_state)
+    rec["cnn3d_cudnn_backward_data_twice"] = max(g for _, g in twice.values())
+    with deterministic_cudnn(torch):
+        twice = dc.run_twice(kept["ft_step_unfrozen"].fn, kept["ft_step_unfrozen"].make_state)
+    rec["ft_deterministic_equal_twice"] = all(eq for eq, _ in twice.values())
+    print(f"phase 39(c) the faults: the earlier ECE (scatter_add) at {list(BOOT_SHAPE)}, 20 calls "
+          f"on one input: {rec['scatter_ece_distinct_of_20']} different results, largest gap "
+          f"{rec['scatter_ece_gap']:.3e}; the CNN3D step through cuDNN's backward-data kernel "
+          f"twice: gap {rec['cnn3d_cudnn_backward_data_twice']:.3e}; the unfrozen fine-tune step "
+          f"under cuDNN's deterministic algorithms: equal twice "
+          f"{rec['ft_deterministic_equal_twice']}")
+
+    calls = {"ece": (lambda _: metrics.expected_calibration_error(y, p), lambda: None),
+             "bootstrap_metrics": (lambda _: metrics.binary_metrics(y, p), lambda: None),
+             "cnn3d_train_step": (kept["cnn3d_train_step"].fn,
+                                  kept["cnn3d_train_step"].make_state),
+             "ft_step_unfrozen": (kept["ft_step_unfrozen"].fn,
+                                  kept["ft_step_unfrozen"].make_state)}
+    warm_clocks(torch)
+    for name, (fn, make_state) in calls.items():
+        arms = forms["ece" if name == "bootstrap_metrics" else name]
+        # a fine-tune step takes 0.7 s; the CNN3D step is host-bound, its
+        # blocks spread by +-20%, so it takes the most blocks
+        reps, rounds = {"ft_step_unfrozen": (5, 2), "cnn3d_train_step": (10, 16)}.get(name, (10, 8))
+        times = forms_in_turns(torch, arms, fn, make_state, reps, rounds)
+        (a, ta), (b, tb) = times.items()
+        ma, mb = (statistics.median(t) for t in (ta, tb))
+        rec[f"{name}_ms"] = times
+        rec[f"{name}_median_ms"] = {a: ma, b: mb}
+        rec[f"{name}_ratio"] = mb / ma
+        print(f"phase 39(c) {name} in turns ({rounds} blocks of {reps} calls each form, "
+              f"alternated; each block's median between CUDA events): {a} "
+              f"{[round(t, 3) for t in ta]} ms, {b} {[round(t, 3) for t in tb]} ms; medians "
+              f"{ma:.3f} and {mb:.3f} ms, {b}/{a} {mb / ma:.4f}")
+    return rec
+
+
+def dir_artifacts(yaml, np, out: Path) -> dict:
+    """What a run or a build leaves in ``out``: every ``results*.yaml``, the
+    probabilities of every fold CSV, every array of every ``.npz`` and every
+    column of every ``.parquet``. -> {file: parsed}."""
+    import pandas as pd
+
+    arts = {p.name: yaml.safe_load(p.read_text()) for p in sorted(out.glob("results*.yaml"))}
+    arts.update({p.name: pd.read_csv(p)["y_prob"].to_numpy()
+                 for p in sorted(out.glob("preds_fold_*.csv"))})
+    for p in sorted(out.glob("*.npz")):
+        with np.load(p, allow_pickle=True) as z:
+            arts[p.name] = {k: z[k] for k in z.files}
+    arts.update({p.name: {c: v.to_numpy() for c, v in pd.read_parquet(p).items()}
+                 for p in sorted(out.glob("*.parquet"))})
+    if not arts:
+        raise RuntimeError(f"{out} holds no results, fold CSVs, .npz or .parquet")
+    return arts
+
+
+def rerun_specs(yaml, np, tmp: Path, manifest: Path, bench_ref):
+    """Phase 39(b)'s runs: the bench CV frame (phase 7), the MIL CV on phase
+    16's bags (phase 17), the MIL bag build (phase 16) and the CNN3D build
+    (phase 25), each with its first run's artifacts."""
+    det = tmp / "determinism"
+    mil_cfg = yaml.safe_load(MIL_DATA.read_text())["resnet2d_config"]
+    cnn_cfg = simple_data_config(yaml)["cnn_config"]
+    bench_args = bench_ref["args"][:-1] + [str(det / "bench_cv")]
+    return [
+        {"name": "bench_cv", "module": "pd_fusion_torch.cli", "argv": bench_args,
+         "out": det / "bench_cv", "ref": bench_ref["artifacts"], "expect_k1": False,
+         "first": "phase 7", "what": "python -m pd_fusion_torch.cli " + " ".join(bench_args[:-2])},
+        {"name": "mil_cv", "module": "pd_fusion_torch.cli",
+         "argv": ["run", "--config", str(tmp / "mil_built.yaml"), "--output-dir",
+                  str(det / "mil_cv")],
+         "out": det / "mil_cv", "ref": dir_artifacts(yaml, np, tmp / "mil_built_run"),
+         "expect_k1": True, "first": "phase 17",
+         "what": "python -m pd_fusion_torch.cli run --config <phase 17's config>"},
+        {"name": "mil_bag_build", "module": "pd_fusion_torch.scripts.build_resnet2d_mil_embeddings",
+         "argv": script_argv(mil_cfg, manifest, det / "bags"), "out": det / "bags",
+         "ref": dir_artifacts(yaml, np, tmp / "embeddings_resnet2d"), "expect_k1": False,
+         "first": "phase 16",
+         "what": "python -m pd_fusion_torch.scripts.build_resnet2d_mil_embeddings"},
+        {"name": "cnn3d_build", "module": "pd_fusion_torch.scripts.build_cnn3d_embeddings",
+         "argv": cnn3d_argv(cnn_cfg, manifest, det / "cnn3d"), "out": det / "cnn3d",
+         "ref": dir_artifacts(yaml, np, tmp / "cnn3d_cache"), "expect_k1": False,
+         "first": "phase 25", "what": "python -m pd_fusion_torch.scripts.build_cnn3d_embeddings"},
+    ]
+
+
+def determinism_child(spec_path) -> int:
+    """Phase 39(b)'s child (``chip_smoke.py --determinism-child SPEC``): each
+    of ``spec["runs"]`` through its module's ``main(argv)`` in this fresh
+    process, K1's counts zeroed before each; its wall and K1's counts
+    written to ``spec["out"]``."""
+    import importlib
+
+    import torch
+
+    from pd_fusion_torch.ops import attention_pool as ap
+    from pd_fusion_torch.utils.device import get_device
+
+    spec = json.loads(Path(spec_path).read_text())
+    get_device()  # full-f32 matmuls on the card, as in the smoke's own process
+    rec = {}
+    for run in spec["runs"]:
+        main = importlib.import_module(run["module"]).main
+        ap.reset_launch_counts()
+        t0 = time.perf_counter()
+        main(run["argv"])
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        rec[run["name"]] = {"wall_s": time.perf_counter() - t0, "k1": dict(ap.launch_counts)}
+    Path(spec["out"]).write_text(json.dumps(rec))
+    return 0
+
+
+def determinism_rerun(np, yaml, tmp: Path, runs):
+    """Phase 39(b): ``runs`` ({name, module, argv, out, ref, what}) again in
+    one fresh child (``determinism_child``, killed after
+    ``DIST_CHILD_TIMEOUT_S``), each one's artifacts in ``out`` held bit for
+    bit against ``ref`` (the first run's, read by ``dir_artifacts``).
+    Raises, after printing every run's line, when one differs. ->
+    (records, {name: K1 launches})."""
+    import os
+
+    from pd_fusion_torch.utils import determinism_checks as dc
+
+    spec = {"runs": [{k: r[k] for k in ("name", "module", "argv")} for r in runs],
+            "out": str(tmp / "determinism_child.json")}
+    (tmp / "determinism_child_spec.json").write_text(json.dumps(spec))
+    proc = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--determinism-child",
+         str(tmp / "determinism_child_spec.json")],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, start_new_session=True)
+    wall, _, _ = finish_torchrun(proc, "the determinism child")
+    child = json.loads(Path(spec["out"]).read_text())
+    rows = []
+    for r in runs:
+        again = dir_artifacts(yaml, np, r["out"])
+        if not set(again) <= set(r["ref"]):  # the first run's directory may hold more
+            raise RuntimeError(f"phase 39(b) {r['name']} wrote {sorted(again)}, the first run "
+                               f"{sorted(r['ref'])}")
+        twice = dc.compare({k: r["ref"][k] for k in again}, again)
+        k1 = child[r["name"]]["k1"]
+        if DEV == "cuda" and (k1["plain"] != 0 or (k1["kernel"] > 0) != r["expect_k1"]):
+            raise RuntimeError(f"phase 39(b) {r['name']}: K1 launches {k1}")
+        rows.append({"name": r["name"], "source": f"chip_smoke.py --determinism-child: {r['what']}",
+                     "width": f"a fresh process against {r['first']}",
+                     "equal": all(eq for eq, _ in twice.values()),
+                     "gap": max((g for _, g in twice.values()), default=0.0),
+                     "unequal_outputs": [k for k, (eq, _) in twice.items() if not eq],
+                     "flagged": "not measured", "deterministic": True, "note": "",
+                     "two_runs_s": child[r["name"]]["wall_s"]})
+        print_determinism(rows[-1])
+    print(f"phase 39(b) child: {wall:.3f} s with the process's start; runs "
+          f"{json.dumps({k: round(v['wall_s'], 3) for k, v in child.items()})} s")
+    failed = dc.failures(rows)
+    if failed:
+        raise RuntimeError("a fresh process's run differs from the first: " + "; ".join(failed))
+    return rows, {k: v["k1"] for k, v in child.items()}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
     parser.add_argument("--compare-with", type=Path, default=None,
                         help="another attention_pool.cu with K1's first C interface, timed "
                              "against K1 in turns")
     parser.add_argument("--dist-child", type=Path, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--determinism-child", type=Path, default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.dist_child is not None:  # phase 37's torchrun child (dist_child)
         return dist_child(args.dist_child)
+    if args.determinism_child is not None:  # phase 39's fresh child (determinism_child)
+        return determinism_child(args.determinism_child)
     import torch
 
     if not torch.cuda.is_available():
@@ -3394,9 +3710,10 @@ def main() -> int:
             cv = run_tabular_cv(torch, yaml, ap, cli, config, k, tmp / name)
             if k == 5 and not cv["auc"] > CV_AUC_MIN:
                 raise RuntimeError(f"5-fold CV ROC-AUC {cv['auc']} is not > {CV_AUC_MIN}")
-            if k == 5:  # phase 37(c) holds the run under torchrun against this one
+            if k == 5:  # phases 37(c) and 39(b) hold their runs against this one
                 bench_ref = {"cv5": bench_frame_results(yaml, np, tmp / name, 5),
-                             "cv5_parallel_cv_s": cv["parallel_cv_s"]}
+                             "cv5_parallel_cv_s": cv["parallel_cv_s"],
+                             "artifacts": dir_artifacts(yaml, np, tmp / name), "args": cv["args"]}
             host_us = cv["trainer_s"] / cv["steps"] * 1e6
             print(f"{name} (fusion_moddrop, [64, 32], batch 32, 50 epochs): wall "
                   f"{cv['wall_s']:.3f} s, trainer {cv['trainer_s']:.3f} s for {cv['steps']} "
@@ -3526,6 +3843,21 @@ def main() -> int:
         dist_rec, dist_launches = run_dist_tier(torch, np, yaml, tmp, manifest, bench_ref, card)
         paths.append({**dist_rec, "nccl_world1": nccl_rec})
         print(f"phases 36-37: {time.perf_counter() - t_new:.3f} s")
+
+        # phase 39: every device program twice on the card; the bench CV
+        # frame, the MIL CV on phase 16's bags, the bag build and the CNN3D
+        # build again in a fresh process, against phases 7, 17, 16 and 25
+        t_new = time.perf_counter()
+        torch.cuda.empty_cache()
+        kept = {}
+        det_rows, det_launches = determinism_programs(torch, ap, kept=kept)
+        child_rows, child_k1 = determinism_rerun(
+            np, yaml, tmp, rerun_specs(yaml, np, tmp, manifest, bench_ref))
+        turns = determinism_turns(torch, kept)
+        del kept
+        paths.append({"name": "determinism", "programs": det_rows, "fresh_process": child_rows,
+                      "turns": turns})
+        print(f"phase 39: {time.perf_counter() - t_new:.3f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         shutil.rmtree(tmp_ppmi, ignore_errors=True)
@@ -3541,11 +3873,14 @@ def main() -> int:
         "source": "src/pd_fusion_torch/csrc/attention_pool.cu",
         "replaces": "src/pd_fusion/ops/pallas_mil.py:26",
         "launches": res["launches"] + built_launches + ft_launches + mil_sweep_launches
-        + dist_launches + sum(k1["kernel"] for k1 in vol_launches.values()),
+        + dist_launches + det_launches + child_k1["mil_cv"]["kernel"]
+        + sum(k1["kernel"] for k1 in vol_launches.values()),
         "launches_by_path": {"mil_cv_synthetic_bags": res["launches"],
                              "mil_cv_built_bags": built_launches, "mil_ft_cv": ft_launches,
                              "mil_fused_sweep": mil_sweep_launches,
                              "mil_ft_data_parallel": dist_launches,
+                             "determinism_programs": det_launches,
+                             "determinism_child_mil_cv": child_k1["mil_cv"]["kernel"],
                              **{name: k1["kernel"] for name, k1 in vol_launches.items()}},
         "max_abs_err": max_err,
         "ms": t["kernel_ms"],

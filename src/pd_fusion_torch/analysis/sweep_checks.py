@@ -7,8 +7,9 @@ by ``chip_smoke.py`` and the ``cuda``-marked tests
   same numpy resample indices. The ROC-AUC sums are of 0/1 and halves,
   exact in float32 at these sizes; the Brier score, PR-AUC and the ECE's
   bin sums are float32 sums of up to N terms in another order on the card
-  (and ``scatter_add`` adds in no fixed order there), so the metrics
-  agree to ``BOOT_ATOL``;
+  than on the CPU (a fixed order on each: two runs on one card are equal
+  bit for bit, ``utils/determinism_checks.py``), so the metrics agree to
+  ``BOOT_ATOL``;
 - the stress test's MLP (``scripts/ppmi_stress_test.py::fit_moddrop_mlp``):
   one fold's whole training run on ``device`` and on the CPU from one init
   and the same draws, held as the tabular trainer is

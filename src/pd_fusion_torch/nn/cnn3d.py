@@ -40,12 +40,15 @@ embeddings are gathered in row order on every rank.
 
 No hand kernel: the JAX module reaches no Pallas kernel (XLA
 convolutions, reduce-window and optax), so the convolutions are torch's
-(TF32 off, ``utils/device.py``). Their forward and data gradients are
-cuDNN's; their weight gradients are written as batched matrix products
-(``_Conv3x3``, ``_Deconv2``): on an H100 cuDNN's float32 weight-gradient
-kernel takes over nine tenths of a step at 64^3, and a step through it is
-4.5-10x slower (PERF.md). The products sum the same
-terms in another order.
+(TF32 off, ``utils/device.py``). Their forwards are cuDNN's; their weight
+gradients are written as batched matrix products (``_Conv3x3``,
+``_Deconv2``): on an H100 cuDNN's float32 weight-gradient kernel takes over
+nine tenths of a step at 64^3, and a step through it is 4.5-10x slower
+(PERF.md). The 3x3x3 convolutions' data gradients are forward convolutions
+of the gradient (cuDNN's backward-data kernel added with atomics: two runs
+of a step differed in their last bits on an H100; the forward form is no
+slower). The products and convolutions sum the same terms in another
+order.
 """
 import math
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -149,9 +152,18 @@ def _batched_outer(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a, b.transpose(-1, -2)).sum((0, 1))
 
 
+def _conv3x3_data_grad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The data gradient of Conv3d(k3, pad 1): the forward convolution of
+    the gradient with the kernel flipped in space and its channel axes
+    swapped (the same on every run, where cuDNN's backward-data kernel is
+    not: ``utils/determinism_checks.py``)."""
+    return F.conv3d(g, w.transpose(0, 1).flip((2, 3, 4)), padding=1)
+
+
 class _Conv3x3(torch.autograd.Function):
-    """Conv3d(k3, pad 1): forward and data gradient by cuDNN, weight
-    gradient as sum over the batch of grad [cout, V] @ patches^T [V, cin*27]."""
+    """Conv3d(k3, pad 1): forward by cuDNN; data gradient
+    ``_conv3x3_data_grad``; weight gradient as sum over the batch of grad
+    [cout, V] @ patches^T [V, cin*27]."""
 
     @staticmethod
     def forward(ctx, x, w, b):
@@ -164,7 +176,7 @@ class _Conv3x3(torch.autograd.Function):
         B, co = g.shape[:2]
         gx = None
         if ctx.needs_input_grad[0]:
-            gx = torch.nn.grad.conv3d_input(x.shape, w, g, padding=1)
+            gx = _conv3x3_data_grad(g, w)
         gw = _batched_outer(g.reshape(B, co, -1), _patches(x))
         return gx, gw.reshape(w.shape), g.sum((0, 2, 3, 4))
 

@@ -16,9 +16,12 @@ Parity with the JAX package, term for term:
 - ECE compares against the f64 ``np.linspace`` lower boundaries rounded
   DOWN to f32 (``_lower_bin_bounds_f32``);
 - degenerate inputs give NaN (0/0), never a guarded 1e-38;
-- ECE's bin sums are ``scatter_add``, which on a CUDA device adds in no
-  fixed order: its result may differ from the CPU's in the last bits
-  (well inside the 1e-6 the tests hold it to).
+- ECE's bin sums are masked sums over the one-hot bin membership, in a
+  fixed order: each bin receives exactly the terms ``.at[idx].add`` gives
+  it, so the result differs from the JAX package's only by summation
+  order (well inside the 1e-6 the tests hold it to), and two runs on a
+  card are equal bit for bit (``scatter_add`` added with float atomics
+  there, in no fixed order).
 
 Every metric reduces over the last axis: ``y_prob`` [..., N] gives one
 value per leading index (``analysis/bootstrap_ci.py`` computes all its
@@ -173,10 +176,11 @@ def expected_calibration_error(
     wv = torch.where(valid, w, 0.0)
 
     acc = (y == (y_prob >= 0.5).to(y_prob.dtype)).to(y_prob.dtype)
-    zeros = torch.zeros(y_prob.shape[:-1] + (n_bins,), dtype=y_prob.dtype, device=y_prob.device)
-    bin_w = zeros.scatter_add(-1, idx, wv)
-    bin_acc = zeros.scatter_add(-1, idx, wv * acc)
-    bin_conf = zeros.scatter_add(-1, idx, wv * y_prob)
+    # [..., N, n_bins]: each term lands in its bin alone (a NaN term too, as
+    # with .at[idx].add); the sums over N run in a fixed order
+    member = idx[..., None] == torch.arange(n_bins, device=y_prob.device)
+    bin_w, bin_acc, bin_conf = (torch.sum(torch.where(member, v[..., None], 0.0), -2)
+                                for v in (wv, wv * acc, wv * y_prob))
 
     total_w = torch.sum(w, -1, keepdim=True)
     nonzero = bin_w > 0

@@ -23,8 +23,9 @@ training step, card against CPU) and
 ``pd_fusion_torch/analysis/tabular_checks.py`` (the PPMI suites' logistic
 fit, AUC screen, permutation probes and stacked GBDT fit) and
 ``pd_fusion_torch/analysis/sweep_checks.py`` (the bootstrap program, the
-stress test's MLP training, the fused sweep against standalone runs),
-which ``chip_smoke.py`` runs too.
+stress test's MLP training, the fused sweep against standalone runs) and
+``pd_fusion_torch/utils/determinism_checks.py`` (ECE and the repaired
+training steps, the same on every run), which ``chip_smoke.py`` runs too.
 """
 import pytest
 import torch
@@ -265,3 +266,37 @@ def test_fused_sweep_on_the_card_matches_standalone_runs(cuda, tmp_path, monkeyp
                       synthetic=True, sweep_dir=tmp_path)
     gaps = sweep_checks.standalone_gaps(config, data_config, eval_config, [42, 43], 5, tmp_path)
     assert max(gaps.values()) <= atol, gaps
+
+
+@pytest.mark.parametrize("n,N", [(1000, 1500), (5, 500)], ids=["bootstrap", "bench-frame"])
+def test_ece_is_the_same_on_every_run_on_the_card(cuda, n, N):
+    """ECE's bin sums in a fixed order: ten calls on the same inputs equal
+    bit for bit (``scatter_add`` gave 20 different results of 20 at the
+    bootstrap's [1000, 1500])."""
+    from pd_fusion_torch.analysis.sweep_checks import bootstrap_inputs
+    from pd_fusion_torch.ops.metrics import binary_metrics, expected_calibration_error
+    from pd_fusion_torch.utils import determinism_checks
+
+    if n == 1000:
+        y, p, w = (*(t.to(cuda) for t in bootstrap_inputs(n, N)), None)
+    else:
+        y, p, w = (t.to(cuda) for t in determinism_checks.ece_inputs(n, N))
+    first = expected_calibration_error(y, p, w)
+    metrics = binary_metrics(y, p, w)
+    for _ in range(9):
+        assert torch.equal(expected_calibration_error(y, p, w), first)
+    assert all(torch.equal(v, metrics[k]) for k, v in binary_metrics(y, p, w).items())
+
+
+def test_cnn3d_step_is_the_same_twice_on_the_card(cuda):
+    """The CNN3D step at the data config's width (64^3, embedding 64, batch
+    8), its data gradients as forward convolutions: two runs from one state
+    equal bit for bit (through cuDNN's backward-data kernel they differed
+    by up to 1.49e-08; ``chip_smoke.py`` phase 39)."""
+    from pd_fusion_torch.utils import determinism_checks
+    from pd_fusion_torch.utils.device import get_device
+
+    get_device(cuda)  # TF32 off
+    prog = determinism_checks.program("cnn3d_train_step", cuda)
+    twice = determinism_checks.run_twice(prog.fn, prog.make_state)
+    assert all(eq for eq, _ in twice.values()), [k for k, (eq, _) in twice.items() if not eq]

@@ -125,15 +125,20 @@ Phases; any failure exits non-zero before the final line:
    device memory (blocks rematerialized), TFLOP/s against the float32
    bound, the top device ops, and K1's kernel (by its symbol) and its
    torch-op backward (a ``record_function`` range) with their share of the
-   step;
+   step; the profile must hold no ``convolution_backward`` op (the
+   ResNet's convolution gradients are the port's own,
+   ``nn/resnet.py::_Conv2d``, not cuDNN's atomic backward kernels);
 22. the fine-tune CV through the CLI on a copy of
    ``configs/openneuro_ds001907_resnet2d_mil_ft.yaml`` at every width of
-   the config, on 24 of phase 14's subjects x 2 sessions, 2 folds, 3 epochs
+   the config, on 24 of phase 14's subjects x 2 sessions, 2 folds, 2 epochs
    with the gate opening after the first (the cuts are printed): 7
    scenarios, fold CSVs and plots, K1 launched and the plain pool never;
-   then the single split (``results.yaml``, ``model.pt``), the artifact
-   reloaded with ``load_model`` predicting as the trained model with
-   ``tta_inference`` 1; and a predict chunk with TTA 4 profiled;
+   then the single split (``results.yaml``, ``model.pt``) with its
+   augmentation drawn from ``FT_DRAWS_SEED`` (``seeded_ft_draws``: both
+   packages draw it from an unseeded generator), the artifact reloaded
+   with ``load_model`` predicting 8 bags as the trained model with
+   ``tta_inference`` 1 (written to ``predictions.npz`` for phase 39(b));
+   and a predict chunk with TTA 4 profiled;
 23. the simple 3-D statistics (``ops/volume_stats.py``) of 8 of phase 14's
    volumes at the feature config's width (96^3, 10 bins, grid 8) on the
    card against the CPU, ``extra_stats`` off and on
@@ -255,20 +260,26 @@ Phases; any failure exits non-zero before the final line:
    inputs and state, then once under
    ``torch.use_deterministic_algorithms(True, warn_only=True)`` for the
    ops PyTorch flags: one line a program (equal twice, the largest gap,
-   the flagged ops, its source ``file:line``), K1 counted; then one fresh
-   child (``chip_smoke.py --determinism-child``) runs the bench CV frame
+   the flagged ops, its source ``file:line``), K1 counted; beside it one
+   fresh child (``chip_smoke.py --determinism-child``) runs the bench CV frame
    and the MIL CV on phase 16's bags through the CLI, the MIL bag build and
-   the CNN3D build again, each held bit for bit against phases 7, 17, 16
-   and 25 (results, fold probabilities, ``.npz`` bags, ``.parquet``
-   embeddings), K1 counted in the MIL CV. A program listed as deterministic
-   that differs between its two runs fails the smoke; the two by design
-   (``hist_mode: scatter``, the unfrozen fine-tune step through cuDNN's
-   backward kernels) are printed with their gaps. Then (c) what the
+   the CNN3D build and phase 22's fine-tune single split again (its
+   augmentation from the same seed, then its ``model.pt`` on the same 8
+   bags), each held bit for bit against phases 7, 17, 16, 25 and 22
+   (results, fold probabilities, ``.npz`` bags and predictions,
+   ``.parquet`` embeddings, every tensor of ``model.pt``), K1 counted in
+   the MIL CV and the fine-tune. A program listed as deterministic that
+   differs between its two runs fails the smoke; the one by design
+   (``hist_mode: scatter``) is printed with its gap. Then (c) what the
    repairs replaced: the earlier ECE (``scatter_add``) 20 times on one
-   input and the CNN3D step through cuDNN's backward-data kernel twice,
-   the unfrozen fine-tune step under cuDNN's deterministic algorithms
-   twice, and each against the current form in turns (ECE and the six
-   metrics at the bootstrap's shape, the CNN3D step, the fine-tune step);
+   input, the CNN3D step through cuDNN's backward-data kernel twice and
+   the unfrozen fine-tune step through cuDNN's backward twice, to show the
+   faults; each against the current form in turns (ECE and the six
+   metrics at the bootstrap's shape, the CNN3D step, and the fine-tune
+   step through cuDNN's default backward, the port's own gradients and
+   cuDNN's deterministic algorithms); then each distinct convolution of
+   the step's ResNet-50 at its width (256 images at 224^2) in those three
+   forms, in turns, summed by kind (``nn/resnet_checks.py``);
 38. a JSON line with each device program's host and device time and
    launches a step; one with each path's wall time, busy share and AUC
    (phase 39's records among them); one with each kernel's launches (by
@@ -1601,9 +1612,40 @@ FT_CONFIG = ROOT / "configs" / "openneuro_ds001907_resnet2d_mil_ft.yaml"
 # fewer: the nested calibration split (calibration_split 0.1, a 10-way
 # group K-fold of a fold's training part) needs 10 rows of a class there
 FT_SUBJECTS = 24
-FT_DEPTH = {"epochs": 3, "freeze_backbone_epochs": 1}
+# (2 epochs, not 3, keep the smoke inside its time limit on a slower host;
+# the gate still opens after the first, so unfrozen steps run)
+FT_DEPTH = {"epochs": 2, "freeze_backbone_epochs": 1}
 FT_FOLDS = 2
 FT_PREDICT_BAGS = 8  # bags predicted again after the artifact's reload
+# the single split's augmentation draws: both packages draw them from an
+# unseeded numpy generator per train and predict call, so phase 22's split
+# and its rerun in phase 39(b) both draw from this seed instead
+FT_DRAWS_SEED = 12
+
+
+@contextlib.contextmanager
+def seeded_ft_draws():
+    """Every ``MilAttentionFineTuneModel`` draws its augmentation from a
+    generator seeded with ``FT_DRAWS_SEED`` inside the block (a fresh one
+    for each train and predict call, as the unseeded ones are)."""
+    import numpy as np
+
+    from pd_fusion_torch.models import mil_attention_finetune as ft
+
+    with patched(ft.MilAttentionFineTuneModel, "_rng",
+                 lambda self: np.random.default_rng(FT_DRAWS_SEED)):
+        yield
+
+
+def predict_ft_bags(path: Path, bags):
+    """The model of ``path`` (``model.pt``) on ``bags`` with ``tta_inference``
+    1 -> uncalibrated probabilities."""
+    from pd_fusion_torch.models.serialization import load_model
+
+    m = load_model(path)
+    m = getattr(m, "base_model", m)
+    m.tta_inference = 1
+    return m.predict_proba(bags)
 
 
 def ft_flops(ec, TR, backbone, arch, size, n_img, train_backbone):
@@ -1638,6 +1680,12 @@ def ft_step_program(torch, ap, ft, fc, ec, TR, gate, B, L, hw):
     with k1_backward_range(torch, ap):
         rec = program_profile(torch, step, calls=2)
     prof = rec.pop("prof")
+    # the ResNet's convolution gradients are the port's own (nn/resnet.py::_Conv2d):
+    # cuDNN's backward kernels, which add with atomics, must not run
+    rec["conv_backward_ops"] = sorted({e.key for e in prof.key_averages()
+                                       if "convolution_backward" in e.key})
+    if rec["conv_backward_ops"]:
+        raise RuntimeError(f"the fine-tune step ran {rec['conv_backward_ops']}")
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -1713,6 +1761,8 @@ def run_ft_path(torch, np, yaml, ap, cli, tmp: Path, manifest: Path):
               f"and batch); {rec['tflop']:.3f} TFLOP a step, {rec['tflops']:.2f} TFLOP/s over "
               f"the device time; bound {rec['bound_us']:.1f} us at 67 TFLOP/s float32 "
               f"({rec['bound_us'] / rec['device_us_per_step']:.4f} of it)")
+        print("    convolution_backward ops: none (the ResNet's gradients are nn/resnet.py's "
+              "own: _Conv2d)")
         print(f"    K1 forward {rec['k1_fwd_us']:.3f} us ({rec['k1_fwd_launches']:.0f} launches, "
               f"share {rec['k1_fwd_share']:.6f}); K1 backward (torch ops) {rec['k1_bwd_us']:.3f} "
               f"us ({rec['k1_bwd_launches']:.0f} launches, share {rec['k1_bwd_share']:.6f})")
@@ -1785,7 +1835,9 @@ def run_ft_path(torch, np, yaml, ap, cli, tmp: Path, manifest: Path):
     t0 = time.perf_counter()
     run_experiment.train_pipeline = keep_model
     try:
-        results = cli.main(["run", "--config", str(single_config), "--output-dir", str(run_out)])
+        with seeded_ft_draws():
+            results = cli.main(["run", "--config", str(single_config), "--output-dir",
+                                str(run_out)])
     finally:
         run_experiment.train_pipeline = train_pipeline
     train_wall = time.perf_counter() - t0
@@ -1798,15 +1850,18 @@ def run_ft_path(torch, np, yaml, ap, cli, tmp: Path, manifest: Path):
     base.save(tmp / "ft_artifact.pt")
     bags = pd.read_csv(sub_manifest)["t1wbrain_path"].tolist()[:FT_PREDICT_BAGS]
     want = {}
-    for what, m in (("trained", base), ("model.pt", load_model(run_out / "model.pt")),
-                    ("kind artifact", load_model(tmp / "ft_artifact.pt"))):
-        m = getattr(m, "base_model", m)
-        m.tta_inference = 1
-        want[what] = m.predict_proba(bags)
+    with seeded_ft_draws():
+        for what, m in (("trained", base), ("model.pt", load_model(run_out / "model.pt")),
+                        ("kind artifact", load_model(tmp / "ft_artifact.pt"))):
+            m = getattr(m, "base_model", m)
+            m.tta_inference = 1
+            want[what] = m.predict_proba(bags)
+    np.savez(run_out / "predictions.npz", y_prob=want["model.pt"])  # phase 39(b)'s reference
     reload_err = max(float(np.abs(v - want["trained"]).max()) for v in want.values())
     if not (np.isfinite(want["trained"]).all() and reload_err <= 1e-6):
         raise RuntimeError(f"the reloaded fine-tune model predicts {want}")
-    print(f"fine-tune single split (run --config <the copy without cv_folds>): wall "
+    print(f"fine-tune single split (run --config <the copy without cv_folds>, augmentation "
+          f"drawn from seed {FT_DRAWS_SEED}): wall "
           f"{train_wall:.3f} s, K1 launches {train_k1['kernel']}; model.pt "
           f"({type(model).__name__}) and the mil_attention_ft artifact reloaded with load_model "
           f"predict {FT_PREDICT_BAGS} bags as the trained model (tta_inference 1): max abs err "
@@ -2165,9 +2220,10 @@ def run_volume_path(torch, np, yaml, ap, cli, tmp: Path, manifest: Path):
 
 STUDY_CONFIG = ROOT / "configs" / "ppmi_studydata.yaml"
 STUDY_SUBJECTS = 1500  # PD and HC subjects of the synthetic study data (plus 200 excluded)
-# the sweep's seeds: the config's five, unless a cut is recorded here (depth
-# only: every ablation, model and width stays the config's)
-STUDY_SEEDS = None
+# the sweep's seeds: the config's first three of five, a depth cut (every
+# ablation, model and width stays the config's) that keeps the smoke inside
+# its time limit on a slower host
+STUDY_SEEDS = 3
 
 
 def run_download_dev(ap, cli, tmp: Path):
@@ -3339,13 +3395,6 @@ def patched(module, name, value):
         setattr(module, name, before)
 
 
-@contextlib.contextmanager
-def deterministic_cudnn(torch):
-    """cuDNN limited to its deterministic algorithms inside the block."""
-    with patched(torch.backends.cudnn, "deterministic", True):
-        yield
-
-
 def forms_in_turns(torch, forms, fn, make_state, reps=5, rounds=2):
     """``fn(make_state())`` under each of ``forms`` (name -> context
     factory), in turns (a, b, b, a, a, b, ...: ``rounds`` blocks each): a
@@ -3365,17 +3414,34 @@ def forms_in_turns(torch, forms, fn, make_state, reps=5, rounds=2):
     return times
 
 
+@contextlib.contextmanager
+def cudnn_deterministic_backward():
+    """The ResNet's convolutions through ``F.conv2d``'s autograd with cuDNN
+    limited to its deterministic algorithms inside the block: a repair
+    timed against the port's own gradients, not taken (slower than
+    cuDNN's default)."""
+    from pd_fusion_torch.nn import resnet_checks as rc
+
+    with rc.cudnn_backward(), rc.cudnn_deterministic():
+        yield
+
+
 def determinism_turns(torch, kept):
-    """Phase 39(c): what the repairs replaced, and the by-design step's
-    deterministic form. The port's earlier ECE (``scatter_add``) 20 times
-    on one input and its CNN3D step (cuDNN's backward-data kernel) twice,
-    to show the fault; the unfrozen fine-tune step under cuDNN's
-    deterministic algorithms twice. Then each against the current form in
-    turns (``forms_in_turns``): ECE and the bootstrap's six metrics at
-    ``BOOT_SHAPE``, the CNN3D step, the unfrozen fine-tune step. ->
+    """Phase 39(c): what the repairs replaced. The port's earlier ECE
+    (``scatter_add``) 20 times on one input, its CNN3D step (cuDNN's
+    backward-data kernel) twice and the unfrozen fine-tune step through
+    cuDNN's backward twice, to show the faults. Then each against the
+    current form in turns (``forms_in_turns``): ECE and the bootstrap's six
+    metrics at ``BOOT_SHAPE``, the CNN3D step, and the unfrozen fine-tune
+    step through cuDNN's default backward, the port's own gradients and
+    cuDNN's deterministic algorithms (each later form's ratio to the
+    first). Last, each convolution of the step's ResNet-50 at its width
+    (N = 256 images) in the same three forms
+    (``nn/resnet_checks.py::backward_forms``), summed by kind. ->
     record."""
     from pd_fusion_torch.analysis.sweep_checks import BOOT_SHAPE, bootstrap_inputs
     from pd_fusion_torch.nn import cnn3d
+    from pd_fusion_torch.nn import resnet_checks as rc
     from pd_fusion_torch.ops import metrics
     from pd_fusion_torch.utils import determinism_checks as dc
 
@@ -3395,21 +3461,21 @@ def determinism_turns(torch, kept):
         "cnn3d_train_step": {"forward_conv_data_grad": contextlib.nullcontext,
                              "cudnn_backward_data": lambda: patched(
                                  cnn3d, "_conv3x3_data_grad", cudnn_data_grad)},
-        "ft_step_unfrozen": {"cudnn_default": contextlib.nullcontext,
-                             "cudnn_deterministic": lambda: deterministic_cudnn(torch)},
+        "ft_step_unfrozen": {"cudnn_default": rc.cudnn_backward,
+                             "own_backward": contextlib.nullcontext,
+                             "cudnn_deterministic": cudnn_deterministic_backward},
     }
     with forms["cnn3d_train_step"]["cudnn_backward_data"]():
         twice = dc.run_twice(kept["cnn3d_train_step"].fn, kept["cnn3d_train_step"].make_state)
     rec["cnn3d_cudnn_backward_data_twice"] = max(g for _, g in twice.values())
-    with deterministic_cudnn(torch):
+    with rc.cudnn_backward():
         twice = dc.run_twice(kept["ft_step_unfrozen"].fn, kept["ft_step_unfrozen"].make_state)
-    rec["ft_deterministic_equal_twice"] = all(eq for eq, _ in twice.values())
+    rec["ft_cudnn_backward_twice"] = max(g for _, g in twice.values())
     print(f"phase 39(c) the faults: the earlier ECE (scatter_add) at {list(BOOT_SHAPE)}, 20 calls "
           f"on one input: {rec['scatter_ece_distinct_of_20']} different results, largest gap "
           f"{rec['scatter_ece_gap']:.3e}; the CNN3D step through cuDNN's backward-data kernel "
           f"twice: gap {rec['cnn3d_cudnn_backward_data_twice']:.3e}; the unfrozen fine-tune step "
-          f"under cuDNN's deterministic algorithms: equal twice "
-          f"{rec['ft_deterministic_equal_twice']}")
+          f"through cuDNN's backward twice: gap {rec['ft_cudnn_backward_twice']:.3e}")
 
     calls = {"ece": (lambda _: metrics.expected_calibration_error(y, p), lambda: None),
              "bootstrap_metrics": (lambda _: metrics.binary_metrics(y, p), lambda: None),
@@ -3420,26 +3486,81 @@ def determinism_turns(torch, kept):
     warm_clocks(torch)
     for name, (fn, make_state) in calls.items():
         arms = forms["ece" if name == "bootstrap_metrics" else name]
-        # a fine-tune step takes 0.7 s; the CNN3D step is host-bound, its
-        # blocks spread by +-20%, so it takes the most blocks
-        reps, rounds = {"ft_step_unfrozen": (5, 2), "cnn3d_train_step": (10, 16)}.get(name, (10, 8))
+        # a fine-tune step takes 0.6-0.7 s (its blocks spread by under 1%);
+        # the CNN3D step is host-bound, its blocks spread by +-20%, so it
+        # takes the most blocks
+        reps, rounds = {"ft_step_unfrozen": (3, 2), "cnn3d_train_step": (10, 16)}.get(name, (10, 8))
         times = forms_in_turns(torch, arms, fn, make_state, reps, rounds)
-        (a, ta), (b, tb) = times.items()
-        ma, mb = (statistics.median(t) for t in (ta, tb))
+        medians = {f: statistics.median(t) for f, t in times.items()}
+        first = next(iter(medians))
         rec[f"{name}_ms"] = times
-        rec[f"{name}_median_ms"] = {a: ma, b: mb}
-        rec[f"{name}_ratio"] = mb / ma
+        rec[f"{name}_median_ms"] = medians
+        rec[f"{name}_ratios"] = {f: m / medians[first] for f, m in medians.items() if f != first}
         print(f"phase 39(c) {name} in turns ({rounds} blocks of {reps} calls each form, "
-              f"alternated; each block's median between CUDA events): {a} "
-              f"{[round(t, 3) for t in ta]} ms, {b} {[round(t, 3) for t in tb]} ms; medians "
-              f"{ma:.3f} and {mb:.3f} ms, {b}/{a} {mb / ma:.4f}")
+              f"alternated; each block's median between CUDA events): "
+              + "; ".join(f"{f} {[round(t, 3) for t in ts]} ms, median {medians[f]:.3f} ms"
+                          for f, ts in times.items())
+              + "; " + ", ".join(f"{f}/{first} {r:.4f}"
+                                 for f, r in rec[f"{name}_ratios"].items()))
+
+    t0 = time.perf_counter()
+    n = dc.FT_BAGS[0] * dc.FT_BAGS[1]
+    rows = rc.backward_forms(n)
+    rec["conv_backward_forms"] = rows
+    rec["conv_backward_by_kind"] = rc.by_kind(rows)
+    totals = {f: sum(k[f"{f}_ms"] for k in rec["conv_backward_by_kind"].values())
+              for f in rc.FORMS}
+    print(f"phase 39(c) the ResNet-50's convolution gradients at N={n} (224^2), {len(rows)} "
+          f"distinct convolutions, each timed in the three forms in turns (2 blocks of 5 calls, "
+          f"each block's median between CUDA events), every one equal twice in the port's form "
+          f"and within {rc.ACCURACY_FACTOR}x cuDNN's error of float64 "
+          f"(nn/resnet_checks.py::backward_forms); {time.perf_counter() - t0:.3f} s")
+    for r in rows:
+        print(f"    {r['kind']:10s} x {r['x']} w {r['w']} x{r['count']}: own {r['own_ms']:.3f} ms, "
+              f"cudnn_default {r['cudnn_default_ms']:.3f}, cudnn_deterministic "
+              f"{r['cudnn_deterministic_ms']:.3f}; error off float64 {r['rel_err']:.2e} "
+              f"(cuDNN {r['rel_err_cudnn']:.2e})")
+    for k, v in rec["conv_backward_by_kind"].items():
+        print(f"  phase 39(c) kind {k} ({v['convs']:.0f} convs a step): own {v['own_ms']:.3f} ms, "
+              f"cudnn_default {v['cudnn_default_ms']:.3f} ms, cudnn_deterministic "
+              f"{v['cudnn_deterministic_ms']:.3f} ms a step")
+    print("  phase 39(c) all kinds: " + ", ".join(f"{f} {t:.3f} ms" for f, t in totals.items())
+          + " a step")
     return rec
 
 
-def dir_artifacts(yaml, np, out: Path) -> dict:
+def model_leaves(np, path: Path) -> dict:
+    """Every tensor and array of a saved model (a whole-object pickle: a
+    calibrated model around its base, their parameter trees), reached
+    through dicts, lists and attributes -> {path: tensor or array}."""
+    from pd_fusion_torch.utils.io import load_pickle
+
+    leaves, seen = {}, set()
+
+    def walk(obj, key):
+        if id(obj) in seen:
+            return
+        seen.add(id(obj))
+        if isinstance(obj, dict):
+            for k, v in obj.items():
+                walk(v, f"{key}.{k}")
+        elif isinstance(obj, (list, tuple)):
+            for i, v in enumerate(obj):
+                walk(v, f"{key}.{i}")
+        elif isinstance(obj, np.ndarray) or hasattr(obj, "detach"):
+            leaves[key] = obj
+        elif hasattr(obj, "__dict__") and not isinstance(obj, type):
+            walk(vars(obj), key)
+
+    walk(load_pickle(path), path.name)
+    return leaves
+
+
+def dir_artifacts(yaml, np, out: Path, with_model=False) -> dict:
     """What a run or a build leaves in ``out``: every ``results*.yaml``, the
     probabilities of every fold CSV, every array of every ``.npz`` and every
-    column of every ``.parquet``. -> {file: parsed}."""
+    column of every ``.parquet``; with ``with_model`` every tensor of
+    ``model.pt``. -> {file: parsed}."""
     import pandas as pd
 
     arts = {p.name: yaml.safe_load(p.read_text()) for p in sorted(out.glob("results*.yaml"))}
@@ -3450,6 +3571,8 @@ def dir_artifacts(yaml, np, out: Path) -> dict:
             arts[p.name] = {k: z[k] for k in z.files}
     arts.update({p.name: {c: v.to_numpy() for c, v in pd.read_parquet(p).items()}
                  for p in sorted(out.glob("*.parquet"))})
+    if with_model:
+        arts["model.pt"] = model_leaves(np, out / "model.pt")
     if not arts:
         raise RuntimeError(f"{out} holds no results, fold CSVs, .npz or .parquet")
     return arts
@@ -3457,8 +3580,10 @@ def dir_artifacts(yaml, np, out: Path) -> dict:
 
 def rerun_specs(yaml, np, tmp: Path, manifest: Path, bench_ref):
     """Phase 39(b)'s runs: the bench CV frame (phase 7), the MIL CV on phase
-    16's bags (phase 17), the MIL bag build (phase 16) and the CNN3D build
-    (phase 25), each with its first run's artifacts."""
+    16's bags (phase 17), the MIL bag build (phase 16), the CNN3D build
+    (phase 25) and the fine-tune single split (phase 22, augmentation from
+    ``FT_DRAWS_SEED``, then ``model.pt`` on the bags phase 22 predicted),
+    each with its first run's artifacts."""
     det = tmp / "determinism"
     mil_cfg = yaml.safe_load(MIL_DATA.read_text())["resnet2d_config"]
     cnn_cfg = simple_data_config(yaml)["cnn_config"]
@@ -3482,16 +3607,37 @@ def rerun_specs(yaml, np, tmp: Path, manifest: Path, bench_ref):
          "argv": cnn3d_argv(cnn_cfg, manifest, det / "cnn3d"), "out": det / "cnn3d",
          "ref": dir_artifacts(yaml, np, tmp / "cnn3d_cache"), "expect_k1": False,
          "first": "phase 25", "what": "python -m pd_fusion_torch.scripts.build_cnn3d_embeddings"},
+        ft_single_rerun_spec(yaml, np, tmp, det),
     ]
+
+
+def ft_single_rerun_spec(yaml, np, tmp: Path, det: Path) -> dict:
+    """Phase 39(b)'s rerun of phase 22's fine-tune single split
+    (``tmp/ft_single.yaml`` into ``tmp/ft_single``, its bags listed in
+    ``tmp/manifest_ft.csv``)."""
+    import pandas as pd
+
+    return {"name": "mil_ft_single", "module": "pd_fusion_torch.cli",
+            "argv": ["run", "--config", str(tmp / "ft_single.yaml"), "--output-dir",
+                     str(det / "ft_single")],
+            "out": det / "ft_single", "ref": dir_artifacts(yaml, np, tmp / "ft_single", True),
+            "with_model": True, "seeded_ft_draws": True,
+            "predict_bags": pd.read_csv(tmp / "manifest_ft.csv")["t1wbrain_path"].tolist()[
+                :FT_PREDICT_BAGS],
+            "expect_k1": True, "first": "phase 22",
+            "what": "python -m pd_fusion_torch.cli run --config <phase 22's single split>"}
 
 
 def determinism_child(spec_path) -> int:
     """Phase 39(b)'s child (``chip_smoke.py --determinism-child SPEC``): each
     of ``spec["runs"]`` through its module's ``main(argv)`` in this fresh
-    process, K1's counts zeroed before each; its wall and K1's counts
-    written to ``spec["out"]``."""
+    process, K1's counts zeroed before each (a run with
+    ``seeded_ft_draws`` under ``seeded_ft_draws()``, then its ``model.pt``
+    on ``predict_bags``, written to ``predictions.npz``); its wall and K1's
+    counts written to ``spec["out"]``."""
     import importlib
 
+    import numpy as np
     import torch
 
     from pd_fusion_torch.ops import attention_pool as ap
@@ -3504,7 +3650,12 @@ def determinism_child(spec_path) -> int:
         main = importlib.import_module(run["module"]).main
         ap.reset_launch_counts()
         t0 = time.perf_counter()
-        main(run["argv"])
+        with seeded_ft_draws() if run.get("seeded_ft_draws") else contextlib.nullcontext():
+            main(run["argv"])
+            if run.get("predict_bags"):
+                out = Path(run["argv"][run["argv"].index("--output-dir") + 1])
+                np.savez(out / "predictions.npz",
+                         y_prob=predict_ft_bags(out / "model.pt", run["predict_bags"]))
         if torch.cuda.is_available():
             torch.cuda.synchronize()
         rec[run["name"]] = {"wall_s": time.perf_counter() - t0, "k1": dict(ap.launch_counts)}
@@ -3512,30 +3663,75 @@ def determinism_child(spec_path) -> int:
     return 0
 
 
-def determinism_rerun(np, yaml, tmp: Path, runs):
-    """Phase 39(b): ``runs`` ({name, module, argv, out, ref, what}) again in
-    one fresh child (``determinism_child``, killed after
-    ``DIST_CHILD_TIMEOUT_S``), each one's artifacts in ``out`` held bit for
-    bit against ``ref`` (the first run's, read by ``dir_artifacts``).
-    Raises, after printing every run's line, when one differs. ->
-    (records, {name: K1 launches})."""
+def start_determinism_child(tmp: Path, runs):
+    """Start phase 39(b)'s fresh child (``determinism_child``) on ``runs``
+    ({name, module, argv, ...}), its output to files under ``tmp`` (a pipe
+    would fill and stall it while this process works). -> handle for
+    ``determinism_rerun``."""
     import os
 
-    from pd_fusion_torch.utils import determinism_checks as dc
-
-    spec = {"runs": [{k: r[k] for k in ("name", "module", "argv")} for r in runs],
+    spec = {"runs": [{k: r[k] for k in ("name", "module", "argv", "seeded_ft_draws",
+                                        "predict_bags") if k in r} for r in runs],
             "out": str(tmp / "determinism_child.json")}
     (tmp / "determinism_child_spec.json").write_text(json.dumps(spec))
+    logs = [open(tmp / f"determinism_child.{ext}", "w") for ext in ("out", "err")]
     proc = subprocess.Popen(
         [sys.executable, str(Path(__file__).resolve()), "--determinism-child",
          str(tmp / "determinism_child_spec.json")],
-        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True, start_new_session=True)
-    wall, _, _ = finish_torchrun(proc, "the determinism child")
-    child = json.loads(Path(spec["out"]).read_text())
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), stdout=logs[0],
+        stderr=logs[1], text=True, start_new_session=True)
+    return {"proc": proc, "t0": time.perf_counter(), "logs": logs, "out": Path(spec["out"])}
+
+
+def stop_determinism_child(child):
+    """Kill ``start_determinism_child``'s whole session (a failure beside it)."""
+    import os
+    import signal
+
+    if child["proc"].poll() is None:
+        os.killpg(child["proc"].pid, signal.SIGKILL)
+        child["proc"].wait()
+    for f in child["logs"]:
+        f.close()
+
+
+def _finish_determinism_child(child):
+    """Wait for ``start_determinism_child``'s process (its whole session
+    killed after ``DIST_CHILD_TIMEOUT_S`` from its start). -> wall s."""
+    import os
+    import signal
+
+    proc = child["proc"]
+    try:
+        proc.wait(timeout=max(1.0, DIST_CHILD_TIMEOUT_S - (time.perf_counter() - child["t0"])))
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        raise RuntimeError(f"the determinism child: no end after {DIST_CHILD_TIMEOUT_S} s; "
+                           "killed")
+    finally:
+        for f in child["logs"]:
+            f.close()
+    if proc.returncode != 0:
+        err = Path(child["logs"][1].name).read_text()
+        raise RuntimeError(f"the determinism child exited {proc.returncode}\n{err[-6000:]}")
+    return time.perf_counter() - child["t0"]
+
+
+def determinism_rerun(np, yaml, tmp: Path, runs, child=None):
+    """Phase 39(b): ``runs`` ({name, module, argv, out, ref, what}) again in
+    one fresh child (``child``, from ``start_determinism_child``, started
+    here if not given), each one's artifacts in ``out`` held bit for bit
+    against ``ref`` (the first run's, read by ``dir_artifacts``). Raises,
+    after printing every run's line, when one differs. -> (records, {name:
+    K1 launches})."""
+    from pd_fusion_torch.utils import determinism_checks as dc
+
+    wall = _finish_determinism_child(child or start_determinism_child(tmp, runs))
+    child = json.loads((tmp / "determinism_child.json").read_text())
     rows = []
     for r in runs:
-        again = dir_artifacts(yaml, np, r["out"])
+        again = dir_artifacts(yaml, np, r["out"], r.get("with_model", False))
         if not set(again) <= set(r["ref"]):  # the first run's directory may hold more
             raise RuntimeError(f"phase 39(b) {r['name']} wrote {sorted(again)}, the first run "
                                f"{sorted(r['ref'])}")
@@ -3551,7 +3747,7 @@ def determinism_rerun(np, yaml, tmp: Path, runs):
                      "flagged": "not measured", "deterministic": True, "note": "",
                      "two_runs_s": child[r["name"]]["wall_s"]})
         print_determinism(rows[-1])
-    print(f"phase 39(b) child: {wall:.3f} s with the process's start; runs "
+    print(f"phase 39(b) child (beside 39(a)): {wall:.3f} s with the process's start; runs "
           f"{json.dumps({k: round(v['wall_s'], 3) for k, v in child.items()})} s")
     failed = dc.failures(rows)
     if failed:
@@ -3845,14 +4041,22 @@ def main() -> int:
         print(f"phases 36-37: {time.perf_counter() - t_new:.3f} s")
 
         # phase 39: every device program twice on the card; the bench CV
-        # frame, the MIL CV on phase 16's bags, the bag build and the CNN3D
-        # build again in a fresh process, against phases 7, 17, 16 and 25
+        # frame, the MIL CV on phase 16's bags, the bag build, the CNN3D
+        # build and the fine-tune single split again in a fresh process,
+        # against phases 7, 17, 16, 25 and 22
         t_new = time.perf_counter()
         torch.cuda.empty_cache()
         kept = {}
-        det_rows, det_launches = determinism_programs(torch, ap, kept=kept)
-        child_rows, child_k1 = determinism_rerun(
-            np, yaml, tmp, rerun_specs(yaml, np, tmp, manifest, bench_ref))
+        # the fresh child runs beside 39(a), whose verdicts do not depend on
+        # time; 39(c)'s timings start after both have ended
+        reruns = rerun_specs(yaml, np, tmp, manifest, bench_ref)
+        child = start_determinism_child(tmp, reruns)
+        try:
+            det_rows, det_launches = determinism_programs(torch, ap, kept=kept)
+        except BaseException:
+            stop_determinism_child(child)
+            raise
+        child_rows, child_k1 = determinism_rerun(np, yaml, tmp, reruns, child)
         turns = determinism_turns(torch, kept)
         del kept
         paths.append({"name": "determinism", "programs": det_rows, "fresh_process": child_rows,
@@ -3874,13 +4078,15 @@ def main() -> int:
         "replaces": "src/pd_fusion/ops/pallas_mil.py:26",
         "launches": res["launches"] + built_launches + ft_launches + mil_sweep_launches
         + dist_launches + det_launches + child_k1["mil_cv"]["kernel"]
-        + sum(k1["kernel"] for k1 in vol_launches.values()),
+        + child_k1["mil_ft_single"]["kernel"] + sum(k1["kernel"] for k1 in vol_launches.values()),
         "launches_by_path": {"mil_cv_synthetic_bags": res["launches"],
                              "mil_cv_built_bags": built_launches, "mil_ft_cv": ft_launches,
                              "mil_fused_sweep": mil_sweep_launches,
                              "mil_ft_data_parallel": dist_launches,
                              "determinism_programs": det_launches,
                              "determinism_child_mil_cv": child_k1["mil_cv"]["kernel"],
+                             "determinism_child_mil_ft_single":
+                                 child_k1["mil_ft_single"]["kernel"],
                              **{name: k1["kernel"] for name, k1 in vol_launches.items()}},
         "max_abs_err": max_err,
         "ms": t["kernel_ms"],

@@ -17,6 +17,29 @@ Precision: ``utils/device.py`` turns TF32 off, so float32 stays float32.
 For bfloat16 the caller folds BN in float32 and then casts the folded
 weights and the input (``imaging/pipeline.py``), as the JAX package does.
 
+Convolution gradients (the MIL fine-tune's unfrozen step, the only caller
+that takes them): every convolution's forward is cuDNN's, but under
+autograd ``_conv`` runs it through ``_Conv2d``, whose backward is the
+port's own. cuDNN's backward kernels add with float atomics
+(``wgrad_alg0_engine``, ``dgrad_engine``): two unfrozen steps from one
+state differed by up to 6.9e-05 on an H100, where XLA's TPU convolutions
+give the JAX package the same bits on every run, and cuDNN's deterministic
+algorithms cost the step 6.4% (PERF.md). So the weight gradient is the
+products of the output gradient with the input's windows (``_patches``, a
+gather of the zero-padded channels-last input; ``_outer_sum``, batched
+products over groups of images summed in a fixed order); the data
+gradient of a 1x1 convolution is one product ``g @ w`` (stride 2: written
+into every second position), of a stride-1 one the forward convolution of
+``g`` with the kernel flipped and its channel axes swapped, of a strided
+one ``stride^2`` such convolutions, one per phase of the input positions,
+each written into its own positions (``_data_grad``). Each is a cuBLAS
+product or a cuDNN forward convolution, neither of which adds with
+atomics, so the step gives the same bits on every run; at the fine-tune's
+width it is also faster than cuDNN's backward (PERF.md). The stem's input
+(the augmented slices) needs no gradient, and ``_Conv2d`` computes none
+unless it is asked for. With no gradient wanted (the frozen step, the
+embed flushes, inference) ``_conv`` is ``F.conv2d`` alone.
+
 With no weights file, ``load_backbone`` gives a seeded He-normal init
 (``pretrained: false``). It never asks torchvision for weights: that
 would download them. The seeded init draws from a torch generator, so it
@@ -76,10 +99,135 @@ def _n_convs(arch: str) -> int:
 
 def _conv(x, w, b=None, stride=1, padding=None):
     """Conv with torch's symmetric ``k // 2`` padding; the input is cast to
-    the weights' dtype (bfloat16 activations under bfloat16 weights)."""
+    the weights' dtype (bfloat16 activations under bfloat16 weights). Under
+    autograd its gradients are the port's own (``_Conv2d``)."""
     if padding is None:
         padding = w.shape[2] // 2
-    return F.conv2d(x.to(w.dtype), w, b, stride=stride, padding=padding)
+    x = x.to(w.dtype)
+    if torch.is_grad_enabled() and (w.requires_grad or x.requires_grad):
+        return _Conv2d.apply(x, w, b, stride, padding)
+    return F.conv2d(x, w, b, stride=stride, padding=padding)
+
+
+def _nhwc(t):
+    """NCHW -> NHWC view (a channels-last tensor's own memory order)."""
+    return t.permute(0, 2, 3, 1)
+
+
+def _patches(x, kh, kw, stride, padding, out_hw):
+    """[N, C, H, W] -> [N, Ho * Wo, kh * kw * C]: every output position's
+    window of the zero-padded input, ordered (i, j, c). A view for a 1x1
+    stride-1 conv on a channels-last input, else one gather."""
+    N, C, H, W = x.shape
+    if padding:
+        xp = x.new_zeros(N, H + 2 * padding, W + 2 * padding, C)
+        xp[:, padding:padding + H, padding:padding + W] = _nhwc(x)
+    else:
+        xp = _nhwc(x)
+    sn, sh, sw, sc = xp.stride()
+    cols = xp.as_strided((N, *out_hw, kh, kw, C),
+                         (sn, stride * sh, stride * sw, sh, sw, sc), xp.storage_offset())
+    return cols.reshape(N, out_hw[0] * out_hw[1], kh * kw * C)
+
+
+def _outer_sum(a, b):
+    """sum over the rows of a [N, P, M] and b [N, P, K] of their outer
+    products -> [M, K], as batched products over groups of images summed
+    in a fixed order: one product with a K of N * P (up to 802,816 in
+    ResNet-50's layer1) would leave most of the card idle, so the images
+    are cut into the most groups whose partial outputs stay under 2^22
+    elements."""
+    N, P, M = a.shape
+    K = b.shape[2]
+    c = max(d for d in range(1, N + 1) if N % d == 0 and (d == 1 or d * M * K <= 1 << 22))
+    a = a.reshape(c, N // c * P, M)
+    b = b.reshape(c, N // c * P, K)
+    return torch.bmm(a.transpose(1, 2), b).sum(0)
+
+
+def _phase(r, k, s, p, n_in, n_out):
+    """Polyphase split of a strided conv's data gradient along one axis: the
+    input positions ``r, r + s, ...`` take taps ``i0, i0 + s, ...`` of the
+    kernel. -> (i0, the taps' count, the gradient's padding before and
+    after (negative: cropped), the positions' count)."""
+    i0 = (r + p) % s
+    taps = len(range(i0, k, s))
+    before = taps - 1 - (r + p) // s
+    count = len(range(r, n_in, s))
+    return i0, taps, before, count + taps - 1 - n_out - before, count
+
+
+def _data_grad(g, w, stride, padding, in_hw):
+    """The input gradient of ``conv2d(x, w, stride, padding)`` from the
+    output gradient ``g``, written out: a 1x1 conv's is one product ``g @
+    w`` (stride 2: written into every second position of a zero tensor); a
+    stride-1 conv's is the forward conv of ``g`` with the kernel flipped in
+    space and its channel axes swapped; a strided one's splits into
+    ``stride^2`` such convs on the output grid, one per phase of the input
+    positions, each written into its own positions (a copy, not an add)."""
+    N, O, Ho, Wo = g.shape
+    C, kh, kw = w.shape[1:]
+    s, p = stride, padding
+    if kh == kw == 1 and p == 0:
+        y = (_nhwc(g).reshape(-1, O) @ w.reshape(O, C)).view(N, Ho, Wo, C)
+        if s == 1:
+            return y.permute(0, 3, 1, 2)
+        gx = g.new_zeros(N, *in_hw, C)
+        gx[:, ::s, ::s] = y
+        return gx.permute(0, 3, 1, 2)
+    wt = w.transpose(0, 1)
+    if s == 1 and p < min(kh, kw):
+        return F.conv2d(g, wt.flip((2, 3)), padding=(kh - 1 - p, kw - 1 - p))
+    gx = g.new_zeros(N, *in_hw, C).permute(0, 3, 1, 2)
+    for rh in range(s):
+        ih, th, bh, ah, ch = _phase(rh, kh, s, p, in_hw[0], Ho)
+        for rw in range(s):
+            iw, tw, bw, aw, cw = _phase(rw, kw, s, p, in_hw[1], Wo)
+            if not (th and tw and ch and cw):
+                continue
+            if bh == ah and bw == aw and min(bh, bw) >= 0:
+                gp, pad = g, (bh, bw)
+            else:
+                gp, pad = F.pad(g, (bw, aw, bh, ah)), 0
+            gx[:, :, rh::s, rw::s] = F.conv2d(gp, wt[:, :, ih::s, iw::s].flip((2, 3)),
+                                              padding=pad)
+    return gx
+
+
+class _Conv2d(torch.autograd.Function):
+    """``F.conv2d`` whose gradients are the port's own, the same bits on
+    every run on the card where cuDNN's backward kernels add with atomics:
+    forward by cuDNN; data gradient ``_data_grad``; weight gradient the
+    products of the output gradient with the input's windows
+    (``_patches``, ``_outer_sum``)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, stride, padding):
+        ctx.save_for_backward(x, w)
+        ctx.stride, ctx.padding = stride, padding
+        return F.conv2d(x, w, b, stride=stride, padding=padding)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        return (*conv2d_grads(g, x, w, ctx.stride, ctx.padding, ctx.needs_input_grad[:3]),
+                None, None)
+
+
+def conv2d_grads(g, x, w, stride, padding, needs):
+    """(input, weight, bias) gradients of ``conv2d(x, w, b, stride,
+    padding)`` from the output gradient ``g``; ``None`` where ``needs`` is
+    false."""
+    N, O, Ho, Wo = g.shape
+    gx = _data_grad(g, w, stride, padding, x.shape[2:]) if needs[0] else None
+    gw = gb = None
+    if needs[1]:
+        cols = _patches(x, w.shape[2], w.shape[3], stride, padding, (Ho, Wo))
+        gw = _outer_sum(_nhwc(g).reshape(N, Ho * Wo, O), cols)
+        gw = gw.view(O, w.shape[2], w.shape[3], w.shape[1]).permute(0, 3, 1, 2).contiguous()
+    if needs[2]:
+        gb = g.sum((0, 2, 3))
+    return gx, gw, gb
 
 
 def _normalize(x, mean, var, p):

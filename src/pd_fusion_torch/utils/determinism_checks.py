@@ -233,9 +233,6 @@ MLP_CFG = {"hidden_dims": [128, 64], "dropout": 0.3, "max_epochs": 100, "lr": 1e
            "patience": 10}
 SCATTER_NOTE = ("hist_mode: scatter adds with index_add_ (float atomics); auto takes onehot on "
                 "CUDA, only a config that names scatter reaches it")
-FT_NOTE = ("cuDNN's backward kernels of the unfrozen ResNet-50 add with atomics; its "
-           "deterministic algorithms make the step more than 5% slower (timed in turns in "
-           "chip_smoke.py phase 39(c); ROADMAP.md Queue 3)")
 
 
 def _to(tree, device):
@@ -366,10 +363,8 @@ def _mil_program(device, small):
                   "2 epochs (K1 forward, its torch-op backward)")
 
 
-def _imaging_programs(device, small):
+def _flush_program(device, small):
     from pd_fusion_torch.imaging import pipeline
-    from pd_fusion_torch.models import ft_checks as fc
-    from pd_fusion_torch.models import mil_attention_finetune as ft
     from pd_fusion_torch.nn.resnet import load_backbone, params_to
 
     W, L, hw, size = (1, 2, 32, 32) if small else (pipeline.SUBJECTS_PER_CALL, 48, 160, 224)
@@ -386,7 +381,19 @@ def _imaging_programs(device, small):
     yield Program("resnet50_embed_flush", flush, None, _src(pipeline._embed),
                   f"{W} subjects x {L} slices {hw}^2 -> {size}^2, float32")
 
-    B, L = (2, 2) if small else (4, 64)
+
+# configs/openneuro_ds001907_resnet2d_mil_ft.yaml's batch_size and slice_count
+FT_BAGS = (4, 64)
+
+
+def ft_step_programs(device, small):
+    """The MIL fine-tune step at the config's width (``FT_BAGS``: B=4 bags
+    of L=64 slices 160^2 -> 224^2, ResNet-50), frozen and unfrozen."""
+    from pd_fusion_torch.models import ft_checks as fc
+    from pd_fusion_torch.models import mil_attention_finetune as ft
+    from pd_fusion_torch.nn.resnet import params_to
+
+    B, L, hw, size = (2, 2, 32, 32) if small else (*FT_BAGS, 160, 224)
     backbone, head = fc.start_params()
     batch = fc.step_inputs(B, L, hw, seed=3, ragged=False)
     hyper = dict(fc.hyper(device), input_size=size)
@@ -404,7 +411,7 @@ def _imaging_programs(device, small):
             return {"backbone": bp, "head": hp, "loss": loss, "opt": opt}
         yield Program(name, fn, state, _src(ft.ft_step),
                       f"B={B} bags x L={L} slices {hw}^2 -> {size}^2, ResNet-50 train-mode BN, "
-                      f"gate {gate:g}", not gate, FT_NOTE if gate else "")
+                      f"gate {gate:g}")
 
 
 def _volume_programs(device, small):
@@ -498,7 +505,7 @@ def _suite_programs(device, small):
 
 
 PROGRAM_GROUPS = (_metric_programs, _tabular_programs, _gbdt_programs, _mil_program,
-                  _imaging_programs, _volume_programs, _suite_programs)
+                  _flush_program, ft_step_programs, _volume_programs, _suite_programs)
 
 
 def programs(device, size: str = "full") -> Iterator[Program]:

@@ -25,7 +25,9 @@ fit, AUC screen, permutation probes and stacked GBDT fit) and
 ``pd_fusion_torch/analysis/sweep_checks.py`` (the bootstrap program, the
 stress test's MLP training, the fused sweep against standalone runs) and
 ``pd_fusion_torch/utils/determinism_checks.py`` (ECE and the repaired
-training steps, the same on every run), which ``chip_smoke.py`` runs too.
+training steps, the same on every run) and
+``pd_fusion_torch/nn/resnet_checks.py`` (the ResNet's convolution
+gradients against cuDNN's backward), which ``chip_smoke.py`` runs too.
 """
 import pytest
 import torch
@@ -300,3 +302,40 @@ def test_cnn3d_step_is_the_same_twice_on_the_card(cuda):
     prog = determinism_checks.program("cnn3d_train_step", cuda)
     twice = determinism_checks.run_twice(prog.fn, prog.make_state)
     assert all(eq for eq, _ in twice.values()), [k for k, (eq, _) in twice.items() if not eq]
+
+
+def test_unfrozen_ft_step_is_the_same_twice_on_the_card(cuda):
+    """The unfrozen fine-tune step at the small width of
+    ``utils/determinism_checks.py`` (ResNet-50, B=2 bags of L=2 slices at
+    32^2, K1 pooling), its convolution gradients the port's own
+    (``nn/resnet.py::_Conv2d``): two runs from one state equal bit for bit
+    (through cuDNN's backward kernels, at full width, they differed by up
+    to 6.911e-05; ``chip_smoke.py`` phase 39)."""
+    from pd_fusion_torch.utils import determinism_checks
+    from pd_fusion_torch.utils.device import get_device
+
+    get_device(cuda)  # TF32 off
+    prog = next(p for p in determinism_checks.ft_step_programs(cuda, small=True)
+                if p.name == "ft_step_unfrozen")
+    twice = determinism_checks.run_twice(prog.fn, prog.make_state)
+    assert all(eq for eq, _ in twice.values()), [k for k, (eq, _) in twice.items() if not eq]
+
+
+@pytest.mark.parametrize("arch", ["resnet18", "resnet50"])
+def test_backbone_gradients_on_the_card_match_cudnns_backward(cuda, arch):
+    """``resnet_apply_train``'s gradients (every trainable leaf and the
+    input, 64^2, 3 images, the last at sample weight 0) through the port's
+    convolution gradients against the same pass through cuDNN's backward
+    kernels (``F.conv2d``'s autograd), float64 on the card: within 1e-8 of
+    each leaf's largest magnitude (float32 gradients through train-mode BN
+    at a random init are 1-2% apart between any two orders of the sums,
+    ``tests/test_torch_port_resnet.py::_grad_close``)."""
+    from pd_fusion_torch.nn import resnet_checks
+    from pd_fusion_torch.utils.device import get_device
+
+    get_device(cuda)
+    got = resnet_checks.backbone_grads(arch, plain=False, device=cuda)
+    want = resnet_checks.backbone_grads(arch, plain=True, device=cuda)
+    for name, g in got.items():
+        err = float((g - want[name]).abs().max())
+        assert err <= 1e-8 * float(want[name].abs().max()), (name, err)

@@ -122,8 +122,7 @@ def small_programs():
 
 def test_programs_are_the_listed_ones(small_programs):
     assert list(small_programs) == PROGRAMS
-    assert [p.name for p in small_programs.values() if not p.deterministic] == [
-        "gbdt_scatter", "ft_step_unfrozen"]
+    assert [p.name for p in small_programs.values() if not p.deterministic] == ["gbdt_scatter"]
     assert dc.program("ece_20x60", "cpu", "small").name == "ece_20x60"
 
 
@@ -132,6 +131,23 @@ def test_program_calls_no_unjustified_atomic_op(small_programs, name):
     p = small_programs[name]
     call = (lambda: p.fn(p.make_state())) if p.make_state else p.fn
     assert dc.atomic_ops_called(call) == JUSTIFIED.get(name, [])
+
+
+@pytest.mark.parametrize("name", ["ft_step_unfrozen", "ft_step_frozen"])
+def test_ft_step_takes_no_convolution_backward(small_programs, name):
+    """The ResNet's convolution gradients are the port's own
+    (``nn/resnet.py::_Conv2d``): a fine-tune step dispatches no
+    ``convolution_backward``, so on the card it never reaches cuDNN's
+    backward kernels, which add with atomics; through ``F.conv2d``'s own
+    autograd (``resnet_checks.cudnn_backward``) the unfrozen step does."""
+    from pd_fusion_torch.nn import resnet_checks
+
+    p = small_programs[name]
+    ops = dc.aten_ops_called(lambda: p.fn(p.make_state()))
+    assert "convolution" in ops and "convolution_backward" not in ops
+    if name == "ft_step_unfrozen":
+        with resnet_checks.cudnn_backward():
+            assert "convolution_backward" in dc.aten_ops_called(lambda: p.fn(p.make_state()))
 
 
 @pytest.mark.parametrize("name", PROGRAMS)
@@ -273,3 +289,55 @@ def test_phase_39_fresh_process_rerun_equals_the_first_run(chip_smoke, tmp_path,
     assert k1 == {"quickstart": {"kernel": 0, "plain": 0}}
     assert "results.yaml.full_observation.roc_auc" in dc.compare(runs[0]["ref"], runs[0]["ref"])
     assert "phase 39: quickstart: equal twice yes" in capsys.readouterr().out
+
+
+def test_phase_39_fresh_process_reruns_the_finetune_single_split(chip_smoke, tmp_path, capsys):
+    """Phase 22's fine-tune single split (a tiny copy of the fine-tune
+    config on seeded volumes) in this process with its augmentation drawn
+    from ``FT_DRAWS_SEED``, then again in a fresh ``--determinism-child``:
+    ``results.yaml``, the predictions of ``model.pt`` and every tensor of
+    ``model.pt`` bit for bit; a changed tensor is caught."""
+    import pandas as pd
+    import yaml
+
+    from pd_fusion_torch import cli
+    from pd_fusion_torch.imaging.nifti import write_nifti
+
+    rng = np.random.RandomState(0)
+    rows = []
+    for i in range(12):
+        vol = rng.rand(24, 28, 26).astype(np.float32) * 0.3
+        vol[2:22, 2:26, 2:24] += 0.4
+        vol[8:16, 8:16, 8:16] += 1.5 * (i % 2)
+        path = tmp_path / f"sub-{i:02d}_T1w.nii.gz"
+        write_nifti(path, vol)
+        rows.append({"subject_id": f"sub-{i:02d}", "session": 1, "label": i % 2,
+                     "t1wbrain_path": str(path)})
+    pd.DataFrame(rows).to_csv(tmp_path / "manifest_ft.csv", index=False)
+    cfg = yaml.safe_load(chip_smoke.FT_CONFIG.read_text())
+    data_cfg = yaml.safe_load((ROOT / cfg["data_config"]).read_text())
+    data_cfg["manifest_path"] = str(tmp_path / "manifest_ft.csv")
+    (tmp_path / "data_ft.yaml").write_text(yaml.safe_dump(data_cfg))
+    cfg.pop("cv_folds", None)
+    cfg.update(data_config=str(tmp_path / "data_ft.yaml"),
+               eval_config=str(ROOT / cfg["eval_config"]), calibration_split=0.5)
+    cfg["params"].update({"backbone": "resnet18", "target_shape": [16, 16, 16], "slice_count": 4,
+                          "input_size": 32, "hidden_dim": 16, "attn_dim": 8, "epochs": 2,
+                          "freeze_backbone_epochs": 1, "tta_inference": 2})
+    (tmp_path / "ft_single.yaml").write_text(yaml.safe_dump(cfg))
+    first = tmp_path / "ft_single"
+    bags = [r["t1wbrain_path"] for r in rows[:chip_smoke.FT_PREDICT_BAGS]]
+    with chip_smoke.seeded_ft_draws():
+        cli.main(["run", "--config", str(tmp_path / "ft_single.yaml"), "--output-dir", str(first)])
+        np.savez(first / "predictions.npz",
+                 y_prob=chip_smoke.predict_ft_bags(first / "model.pt", bags))
+    spec = chip_smoke.ft_single_rerun_spec(yaml, np, tmp_path, tmp_path / "determinism")
+    assert sorted(spec["ref"]) == ["model.pt", "predictions.npz", "results.yaml"]
+    assert len(spec["ref"]["model.pt"]) > 100 and spec["predict_bags"] == bags
+    rows_, k1 = chip_smoke.determinism_rerun(np, yaml, tmp_path, [spec])
+    assert rows_[0]["equal"] and rows_[0]["gap"] == 0.0
+    assert "phase 39: mil_ft_single: equal twice yes" in capsys.readouterr().out
+    again = chip_smoke.dir_artifacts(yaml, np, spec["out"], True)
+    name, leaf = next(iter(again["model.pt"].items()))
+    again["model.pt"][name] = leaf + 1e-6
+    assert not all(eq for eq, _ in dc.compare(spec["ref"], again).values())

@@ -52,8 +52,10 @@ SWEEP_MODULES = ("parallel.seed_sweep", "analysis.aggregate_results", "analysis.
                  "scripts.submit_dual_h200", "scripts.ppmi_stress_test",
                  "scripts.ppmi_imaging_upgrade", "utils.torch_utils",
                  "scripts.export_backbone_weights", "scripts.verify_loaders")
-# the multi-device tier; the run-to-run determinism checks
-MULTICHIP_MODULES = ("parallel.distributed", "parallel.dryrun", "utils.determinism_checks")
+# the multi-device tier; the run-to-run determinism checks; the ResNet's
+# convolution gradient checks
+MULTICHIP_MODULES = ("parallel.distributed", "parallel.dryrun", "utils.determinism_checks",
+                     "nn.resnet_checks")
 
 
 def test_port_imports_without_jax_or_jax_package():

@@ -26,9 +26,10 @@ count still advances.
 
 Dispatch: each batch is stepped as soon as it is formed, which is what the
 JAX package does under ``PD_FUSION_FT_NO_SCAN=1`` (its ``lax.scan`` flush
-is the same math). A step is a tenth of a second or more of device work
-against a few milliseconds of host dispatch, so the port has no scan, and
-``PD_FUSION_FT_NO_SCAN`` / ``PD_FUSION_FT_SCAN_MB`` do not apply.
+is the same math), so ``PD_FUSION_FT_NO_SCAN`` / ``PD_FUSION_FT_SCAN_MB``
+do not apply. The host's enqueue of a step (span ``step:ft_step``) is not
+small: on an H100 at B=4, L=64 it takes 0.62 s against 0.61 s of device
+work for ResNet-50, and 0.12 s against 0.20 s for ResNet-18.
 
 Random draws, in the JAX package's order from a numpy ``Generator`` (an
 unseeded ``np.random.default_rng()`` per ``train`` and per
@@ -78,6 +79,7 @@ from pd_fusion_torch.nn.resnet import (
 from pd_fusion_torch.ops.image import affine2d_subjects, slices_to_imagenet_batch
 from pd_fusion_torch.ops.metrics import roc_auc
 from pd_fusion_torch.parallel.distributed import all_reduce, all_reduce_grads
+from pd_fusion_torch.utils import profiling
 from pd_fusion_torch.utils.device import get_device
 from pd_fusion_torch.utils.io import load_pickle, save_pickle
 from pd_fusion_torch.utils.seed import fresh_generator
@@ -256,16 +258,18 @@ def ft_step(backbone, head, opt_state, batch: Dict, gate: float, hyper: Dict, ge
     autograd and its gradient is the zero gradient. With ``group`` the
     batch is this rank's bags: the gradients are summed over the group
     before the update (so the clip sees the global norm), and the loss
-    returned is this rank's share of the global mean."""
-    g_b, g_h, loss, stats = ft_grads(backbone, head, batch, gate, hyper, generator, group)
-    with torch.no_grad():
-        new_b, new_h = ft_optim.ft_update(
-            [t.detach() for t in trainable_leaves(backbone)],
-            [t.detach() for t in trainable_leaves(head)], g_b, g_h, opt_state,
-            gate, hyper["lr_backbone"], hyper["lr"], hyper["weight_decay"],
-            hyper["max_grad_norm"])
-    backbone = merge_bn_stats(replace_trainable(backbone, new_b), stats)
-    return backbone, replace_trainable(head, new_h), loss
+    returned is this rank's share of the global mean. Span ``step:ft_step``:
+    the host's enqueue of the step."""
+    with profiling.span("step:ft_step"):
+        g_b, g_h, loss, stats = ft_grads(backbone, head, batch, gate, hyper, generator, group)
+        with torch.no_grad():
+            new_b, new_h = ft_optim.ft_update(
+                [t.detach() for t in trainable_leaves(backbone)],
+                [t.detach() for t in trainable_leaves(head)], g_b, g_h, opt_state,
+                gate, hyper["lr_backbone"], hyper["lr"], hyper["weight_decay"],
+                hyper["max_grad_norm"])
+        backbone = merge_bn_stats(replace_trainable(backbone, new_b), stats)
+        return backbone, replace_trainable(head, new_h), loss
 
 
 def val_auc(y, probs) -> float:
@@ -336,8 +340,18 @@ class MilAttentionFineTuneModel(BaseModel):
     def _rng(self) -> np.random.Generator:
         return self.make_rng() if self.make_rng is not None else np.random.default_rng()
 
-    def _t(self, a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+    def _t(self, a, dtype=np.float32):
+        """``a`` as ``dtype`` on the device: every host-to-device copy of
+        ``train`` and ``predict_proba``, counted in ``trainer:h2d_bytes``."""
+        with profiling.span("trainer:_t"):
+            a = np.asarray(a, dtype)
+            profiling.count("trainer:h2d_bytes", a.nbytes)
+            return torch.as_tensor(a, device=self.device)
+
+    @staticmethod
+    def _readback(t) -> np.ndarray:
+        with profiling.span("trainer:readback", trace=False):  # waits for the device
+            return t.cpu().numpy()
 
     # ---- bag -> normalized slices [n_slices, h, w] -----------------------
     def _load_bag_slices(self, bag) -> Optional[np.ndarray]:
@@ -372,20 +386,21 @@ class MilAttentionFineTuneModel(BaseModel):
     def _aug_params(self, B, L, h, w, rng, enabled: bool):
         """(angle [B], translate [B, 2] in pixels, scale [B], shift [B], noise
         [B, L, h, w]) as float32, drawn in the JAX package's order."""
-        if enabled:
-            angle = rng.uniform(-self.max_rotation, self.max_rotation, size=B)
-            translate = rng.uniform(-self.max_translation, self.max_translation, size=(B, 2))
-            translate = translate * np.array([h, w])
-            scale = 1.0 + rng.uniform(-self.intensity_scale, self.intensity_scale, size=B)
-            shift = rng.uniform(-self.intensity_shift, self.intensity_shift, size=B)
-            noise = (rng.normal(0.0, self.noise_std, size=(B, L, h, w)).astype(np.float32)
-                     if self.noise_std > 0 else np.zeros((B, L, h, w), np.float32))
-        else:
-            angle, translate = np.zeros(B), np.zeros((B, 2))
-            scale, shift = np.ones(B), np.zeros(B)
-            noise = np.zeros((B, L, h, w), np.float32)
-        return (np.float32(angle), np.float32(translate), np.float32(scale), np.float32(shift),
-                noise)
+        with profiling.span("trainer:_aug_params"):
+            if enabled:
+                angle = rng.uniform(-self.max_rotation, self.max_rotation, size=B)
+                translate = rng.uniform(-self.max_translation, self.max_translation, size=(B, 2))
+                translate = translate * np.array([h, w])
+                scale = 1.0 + rng.uniform(-self.intensity_scale, self.intensity_scale, size=B)
+                shift = rng.uniform(-self.intensity_shift, self.intensity_shift, size=B)
+                noise = (rng.normal(0.0, self.noise_std, size=(B, L, h, w)).astype(np.float32)
+                         if self.noise_std > 0 else np.zeros((B, L, h, w), np.float32))
+            else:
+                angle, translate = np.zeros(B), np.zeros((B, 2))
+                scale, shift = np.ones(B), np.zeros(B)
+                noise = np.zeros((B, L, h, w), np.float32)
+            return (np.float32(angle), np.float32(translate), np.float32(scale), np.float32(shift),
+                    noise)
 
     def _resolve_pos_weight(self, y):
         if self.params.get("class_weight") == "balanced":
@@ -494,8 +509,8 @@ class MilAttentionFineTuneModel(BaseModel):
                          "angle": self._t(angle), "translate": self._t(trans),
                          "scale": self._t(scale), "shift": self._t(shift), "noise": self._t(noise)}
                 if dropout_keep_fn is not None:
-                    batch["keep"] = torch.as_tensor(np.asarray(dropout_keep_fn(bs, L_i, hidden)),
-                                                    dtype=torch.bool, device=self.device)
+                    batch["keep"] = self._t(dropout_keep_fn(bs, L_i, hidden), bool)
+                profiling.count("trainer:steps")
                 self.backbone_params, self.head_params, _ = ft_step(
                     self.backbone_params, self.head_params, self.opt_state, batch, gate, hyper,
                     generator)
@@ -517,11 +532,15 @@ class MilAttentionFineTuneModel(BaseModel):
             self.backbone_params, self.head_params = stopper.best_state
 
     def _predict_chunk(self, X, bag_mask):
-        B, L = X.shape[:2]
-        x = slices_to_imagenet_batch(X.reshape(B * L, *X.shape[2:]), self.input_size,
-                                     self._t(self.mean), self._t(self.std))
-        emb = resnet_apply(self.backbone_params, x, self.backbone_name).reshape(B, L, -1)
-        return torch.sigmoid(mil_apply(self.head_params, emb, bag_mask, gated=self.gated))
+        """One pass over a chunk of bags (span ``trainer:_predict_chunk``, the
+        host's enqueue; counter ``trainer:passes``)."""
+        profiling.count("trainer:passes")
+        with profiling.span("trainer:_predict_chunk"):
+            B, L = X.shape[:2]
+            x = slices_to_imagenet_batch(X.reshape(B * L, *X.shape[2:]), self.input_size,
+                                         self._t(self.mean), self._t(self.std))
+            emb = resnet_apply(self.backbone_params, x, self.backbone_name).reshape(B, L, -1)
+            return torch.sigmoid(mil_apply(self.head_params, emb, bag_mask, gated=self.gated))
 
     @torch.no_grad()
     def predict_proba(self, bags, masks=None):
@@ -542,10 +561,10 @@ class MilAttentionFineTuneModel(BaseModel):
                 acc = np.zeros(len(chunk), np.float32)
                 for _ in range(self.tta_inference):
                     draw = [self._t(a) for a in self._aug_params(B, L, h, w, rng, True)]
-                    acc += self._predict_chunk(augment(Xt, *draw), mt).cpu().numpy()
+                    acc += self._readback(self._predict_chunk(augment(Xt, *draw), mt))
                 probs = acc / self.tta_inference
             else:
-                probs = self._predict_chunk(Xt, mt).cpu().numpy()
+                probs = self._readback(self._predict_chunk(Xt, mt))
             out[np.asarray(chunk)] = probs
         return out
 

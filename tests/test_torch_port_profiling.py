@@ -1,7 +1,8 @@
 """The port's tracing (``pd_fusion_torch/utils/profiling.py``): a
 ``torch.profiler`` trace under ``$PD_FUSION_PROFILE/<name>/`` when the
 variable is set and nothing when it is not, as the JAX package's
-``maybe_profile`` writes ``jax.profiler`` traces; the phase-time registry."""
+``maybe_profile`` writes ``jax.profiler`` traces; the phase-time registry.
+The spans and counters inside the fine-tune: ``test_torch_port_tracing.py``."""
 import json
 
 import pytest
@@ -43,8 +44,6 @@ def test_phase_timer_registry_and_throughput():
     assert set(times) == {"a", "b"} and all(t >= 0.0 for t in times.values())
     profiling.reset_phase_times()
     assert profiling.get_phase_times() == {}
-    assert profiling.throughput(10, 2.0) == 5.0
-    assert profiling.throughput(10, 0.0) == float("inf")
     with pytest.raises(ValueError):
         with profiling.phase_timer("c", log=False):
             raise ValueError("the block's error propagates")

@@ -6,10 +6,11 @@ and where the MIL fine-tune records them
   ``tracing()`` nested spans give their counts, seconds, self seconds and
   parent, counters add, and ``reset()`` clears them; phases stay apart.
 - Under ``torch.profiler`` tracing is on by itself: each ranged span of the
-  fine-tune is in the trace by its name, and every such name is one of the
+  fine-tune's calling thread is in the trace by its name (the draws' on
+  the preparation thread may be), and every such name is one of the
   benchmark's own ranges (``benchmark/harness/trace.py::RANGES``), which
   its trace reduction leaves out of the device's busy time;
-  ``trainer:readback`` has no range.
+  ``trainer:readback`` and ``trainer:prep_wait`` have no range.
 - A tiny ``train`` call and a TTA-2 ``predict_proba`` count their steps,
   passes, copies, read-backs and host-to-device bytes exactly, and give the
   same bits with tracing on as off.
@@ -180,9 +181,11 @@ def test_ranged_spans_are_in_the_profilers_trace_and_the_benchmarks_ranges():
         _run(model, _bags())
     assert not profiling.tracing_on()
     recorded = set(profiling.snapshot()["spans"])
-    assert RANGED | {"trainer:readback"} <= recorded
+    assert RANGED | {"trainer:readback", "trainer:prep_wait"} <= recorded
     in_trace = {e.name() for e in prof.profiler.kineto_results.events()} & recorded
-    assert in_trace == RANGED
+    # the draws run on the preparation thread, whose ranges the profiler
+    # records where it traces every thread, and not where it traces its own
+    assert RANGED - {"trainer:_aug_params"} <= in_trace <= RANGED
     assert in_trace <= trace.RANGES
 
 

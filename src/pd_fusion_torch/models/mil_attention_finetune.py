@@ -1,6 +1,8 @@
-"""End-to-end MIL fine-tune: a ResNet2D backbone over slice bags and the
+"""End-to-end MIL fine-tune: a 2D backbone over slice bags and the
 attention-pooling head, trained together (port of
-``pd_fusion/models/mil_attention_finetune.py``).
+``pd_fusion/models/mil_attention_finetune.py``). The backbone is
+``backbone: resnet18`` or ``resnet50`` (``nn/resnet.py``, the JAX
+package's two) or ``swin_t`` (``nn/swin.py``, the port's own).
 
 Bags are NIfTI paths (or prepped slice arrays). Per bag: the native host
 prep (read, resize, 1-99% percentile normalize, multi-axis slice gather:
@@ -14,15 +16,17 @@ buffers, Adam at ``lr_backbone`` and ``lr``), batches may be
 class-balanced, validation AUC drives early stopping with best-state
 restore, and inference averages ``tta_inference`` augmented draws.
 
-BN runs in train mode in every step, frozen or not: batch statistics over
-the ``B * L`` images of the batch minus the rows that pad a ragged final
-batch (``bn_mask`` = ``valid``; a ``None`` bag inside a batch counts as
-valid, and its zero slices enter the statistics, as in the JAX package),
-and the running statistics move by their EMA every step. The step
+A ResNet's BN runs in train mode in every step, frozen or not: batch
+statistics over the ``B * L`` images of the batch minus the rows that pad
+a ragged final batch (``bn_mask`` = ``valid``; a ``None`` bag inside a
+batch counts as valid, and its zero slices enter the statistics, as in
+the JAX package), and the running statistics move by their EMA every step. The step
 (``ft_step``) computes what the JAX package's ``_ft_update`` computes.
 While the gate is 0 the backbone runs outside autograd, so the backward
 pass stops at the head: the numbers are the same, and the backbone's Adam
-count still advances.
+count still advances. A Swin backbone has LayerNorms and no running
+statistics: ``bn_mask`` weights nothing there (a row's embedding depends on
+that row alone) and a step merges no statistics.
 
 Dispatch: each batch is stepped as soon as it is formed, which is what the
 JAX package does under ``PD_FUSION_FT_NO_SCAN=1`` (its ``lax.scan`` flush
@@ -77,12 +81,12 @@ from pd_fusion_torch.imaging import native
 from pd_fusion_torch.models.base import BaseModel
 from pd_fusion_torch.nn import ft_optim
 from pd_fusion_torch.nn import mil as mil_nn
+from pd_fusion_torch.nn import swin
 from pd_fusion_torch.nn.mil import mil_apply, mil_init
 from pd_fusion_torch.nn.resnet import (
     BN_STATS,
     IMAGENET_MEAN,
     IMAGENET_STD,
-    load_backbone,
     merge_bn_stats,
     params_from_jax,
     params_to,
@@ -90,6 +94,8 @@ from pd_fusion_torch.nn.resnet import (
     resnet_apply,
     resnet_apply_train,
 )
+from pd_fusion_torch.nn.resnet import load_backbone as load_resnet
+from pd_fusion_torch.nn.swin import swin_apply, swin_apply_train
 from pd_fusion_torch.ops.image import affine2d_subjects, slices_to_imagenet_batch
 from pd_fusion_torch.ops.metrics import roc_auc
 from pd_fusion_torch.parallel.distributed import all_reduce, all_reduce_grads
@@ -212,11 +218,20 @@ def ft_loss(logits, y, valid, loss_type, pos_weight, focal_gamma, focal_alpha, d
     return torch.sum(bce * torch.where(pos, pos_weight, 1.0) * valid) / denom
 
 
+def load_backbone(arch: str, weights_path=None, seed: int = 0, image_size: int = 224):
+    """``arch``'s parameters (CPU tensors) from a checkpoint or the seeded
+    init -> (params, emb_dim, pretrained)."""
+    if swin.is_swin(arch):
+        return swin.load_backbone(arch, weights_path, seed, image_size)
+    return load_resnet(arch, weights_path=weights_path, seed=seed)
+
+
 def ft_forward(backbone, head, batch: Dict, hyper: Dict, generator=None,
                train_backbone: bool = True, group=None):
     """The train-mode forward of one batch -> (loss, backbone params with
-    the new running statistics). ``batch``: device tensors ``slices`` [B,
-    L, h, w], ``bag_mask``, ``bn_mask`` [B, L], ``y``, ``valid`` [B],
+    the new running statistics, or None for a backbone without them).
+    ``batch``: device tensors ``slices`` [B, L, h, w], ``bag_mask``,
+    ``bn_mask`` [B, L], ``y``, ``valid`` [B],
     ``angle`` [B], ``translate`` [B, 2], ``scale``, ``shift`` [B],
     ``noise`` [B, L, h, w], and ``keep`` (bool [B, L, H] dropout keeps, or
     None to draw them from ``generator``). ``train_backbone=False`` runs
@@ -231,9 +246,12 @@ def ft_forward(backbone, head, batch: Dict, hyper: Dict, generator=None,
                       batch["noise"])
         x = slices_to_imagenet_batch(aug.reshape(B * L, *aug.shape[2:]), hyper["input_size"],
                                      hyper["mean"], hyper["std"])
-        emb, stats = resnet_apply_train(backbone, x, hyper["arch"],
-                                        sample_weight=batch["bn_mask"].reshape(B * L),
-                                        group=group)
+        if swin.is_swin(hyper["arch"]):
+            emb, stats = swin_apply_train(backbone, x, hyper["arch"]), None
+        else:
+            emb, stats = resnet_apply_train(backbone, x, hyper["arch"],
+                                            sample_weight=batch["bn_mask"].reshape(B * L),
+                                            group=group)
     logits = mil_apply(head, emb.reshape(B, L, -1), batch["bag_mask"], gated=hyper["gated"],
                        dropout_rate=hyper["head_dropout"], generator=generator,
                        dropout_keep=batch.get("keep"))
@@ -247,8 +265,8 @@ def ft_grads(backbone, head, batch: Dict, gate: float, hyper: Dict, generator=No
              group=None):
     """The gradients of ``ft_step``'s loss -> (backbone gradients, ``None``
     while ``gate`` is 0; head gradients; the loss, detached; the new
-    running statistics). With ``group`` the gradients are summed over the
-    group."""
+    running statistics, or None). With ``group`` the gradients are summed
+    over the group."""
     on = float(gate) != 0.0
     bp = replace_trainable(backbone, [t.detach().requires_grad_(on)
                                       for t in trainable_leaves(backbone)])
@@ -266,7 +284,7 @@ def ft_step(backbone, head, opt_state, batch: Dict, gate: float, hyper: Dict, ge
             group=None):
     """One augment -> backbone -> head -> loss -> two-group Adam step (the
     JAX package's ``_ft_update``). Functional in the parameters: -> (new
-    backbone with the new running statistics, new head, loss);
+    backbone with the new running statistics if it has any, new head, loss);
     ``opt_state`` (``{"backbone", "head"}`` groups of ``nn/ft_optim.py``)
     is updated in place. While ``gate`` is 0 the backbone stays out of
     autograd and its gradient is the zero gradient. With ``group`` the
@@ -282,7 +300,9 @@ def ft_step(backbone, head, opt_state, batch: Dict, gate: float, hyper: Dict, ge
                 [t.detach() for t in trainable_leaves(head)], g_b, g_h, opt_state,
                 gate, hyper["lr_backbone"], hyper["lr"], hyper["weight_decay"],
                 hyper["max_grad_norm"])
-        backbone = merge_bn_stats(replace_trainable(backbone, new_b), stats)
+        backbone = replace_trainable(backbone, new_b)
+        if stats is not None:
+            backbone = merge_bn_stats(backbone, stats)
         return backbone, replace_trainable(head, new_h), loss
 
 
@@ -357,7 +377,7 @@ class MilAttentionFineTuneModel(BaseModel):
 
         weights_path = p.get("weights_path") if bool(p.get("pretrained", True)) else None
         backbone, self.emb_dim, self.pretrained = load_backbone(
-            self.backbone_name, weights_path=weights_path, seed=int(p.get("seed", 0)))
+            self.backbone_name, weights_path, int(p.get("seed", 0)), self.input_size)
         self.backbone_params = params_to(backbone, device=self.device)
         if self.pretrained:
             self.mean, self.std = IMAGENET_MEAN, IMAGENET_STD
@@ -587,7 +607,8 @@ class MilAttentionFineTuneModel(BaseModel):
             B, L = X.shape[:2]
             x = slices_to_imagenet_batch(X.reshape(B * L, *X.shape[2:]), self.input_size,
                                          self._t(self.mean), self._t(self.std))
-            emb = resnet_apply(self.backbone_params, x, self.backbone_name).reshape(B, L, -1)
+            apply = swin_apply if swin.is_swin(self.backbone_name) else resnet_apply
+            emb = apply(self.backbone_params, x, self.backbone_name).reshape(B, L, -1)
             return torch.sigmoid(mil_apply(self.head_params, emb, bag_mask, gated=self.gated))
 
     @torch.no_grad()

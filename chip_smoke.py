@@ -7,10 +7,11 @@
 
 Phases; any failure exits non-zero before the final line:
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build kernel K1 (``csrc/attention_pool.cu``) from the repo's sources
-   with nvcc, and the host IO library with g++, in parallel (set-up time
-   and the ``-Xptxas=-v`` report, printed; the
-   report must show no spills); ``--compare-with`` builds that source too,
+2. build kernel K1 (``csrc/attention_pool.cu``) and kernel pair K2
+   (``csrc/weighted_bn.cu``) from the repo's sources with nvcc, and the
+   host IO library with g++, in parallel (set-up time and the
+   ``-Xptxas=-v`` reports, printed; K1's must show no spills);
+   ``--compare-with`` builds that source too,
    in parallel, with the same flags and the C interface K1 had first
    (scores, mask, h, pooled, weights, B, L, H, stream);
 3. K1 against its plain PyTorch version on the card, forward and
@@ -30,6 +31,16 @@ Phases; any failure exits non-zero before the final line:
    two epochs of the MIL trainer at full width: the device's busy share,
    its top kernels, and K1's backward (torch ops) as a ``record_function``
    range: its device time and kernel launches;
+3(b). K2, the fused train-mode weighted BN with its add and ReLU, against
+   its plain PyTorch version at every BN call of the ResNet-50 and
+   ResNet-18 train steps at the fine-tune's width (256 images of 224^2;
+   ``ops/weighted_bn_checks.py::check_call``, the check the ``cuda`` tests
+   run: forward and backward, kernels and the float32 plain version each
+   held to float64, six launches a call, two calls equal bit for bit),
+   then each call timed (``time_calls``: kernels, bytes bound, the plain
+   version and ``F.batch_norm`` between CUDA events) and summed over a
+   step's BNs; K2's launches are counted on every path below that runs
+   the ResNet train step (the kernels line's ``launches_by_path``);
 4. the ds001907 MIL-attention CV slice at full width through the port's
    CLI (``python -m pd_fusion_torch.cli run --config <abs path>``) on
    seeded synthetic bags (48 subjects x 2 sessions, 48 slices x 2048):
@@ -127,12 +138,15 @@ Phases; any failure exits non-zero before the final line:
    torch-op backward (a ``record_function`` range) with their share of the
    step; the profile must hold no ``convolution_backward`` op (the
    ResNet's convolution gradients are the port's own,
-   ``nn/resnet.py::_Conv2d``, not cuDNN's atomic backward kernels);
+   ``nn/resnet.py::_Conv2d``, not cuDNN's atomic backward kernels); K2's
+   kernels (by symbol) and its launches in an unprofiled step, which must
+   be 3 a fused-BN call: 159 frozen, 474 unfrozen, the plain version 0;
 22. the fine-tune CV through the CLI on a copy of
    ``configs/openneuro_ds001907_resnet2d_mil_ft.yaml`` at every width of
    the config, on 24 of phase 14's subjects x 2 sessions, 2 folds, 2 epochs
    with the gate opening after the first (the cuts are printed): 7
-   scenarios, fold CSVs and plots, K1 launched and the plain pool never;
+   scenarios, fold CSVs and plots, K1 and K2 launched and their plain
+   versions never;
    then the single split (``results.yaml``, ``model.pt``) with its
    augmentation drawn from ``FT_DRAWS_SEED`` (``seeded_ft_draws``: both
    packages draw it from an unseeded generator), the artifact reloaded
@@ -240,7 +254,8 @@ Phases; any failure exits non-zero before the final line:
    the (2x1) and (1x2) meshes, the MIL-FT step at the fine-tune config's
    width (ResNet-50, 224^2, 4 bags of 64 slices split 2+2, one unfrozen
    step: its params, and its all-reduced gradients in float64) with K1
-   counted on each rank and each rank's peak memory, CNN3D at the data
+   counted on each rank (and K2, which its torch-op BN must not launch)
+   and each rank's peak memory, CNN3D at the data
    config's width; each leg against its world-1 run; then the MIL bag
    builder at world 2 over phase 14's 96 volumes against phase 16's bags,
    per subject within 5e-5; (c) the bench CV frame (``--k-fold 5 --model fusion_moddrop``)
@@ -268,7 +283,8 @@ Phases; any failure exits non-zero before the final line:
    bags), each held bit for bit against phases 7, 17, 16, 25 and 22
    (results, fold probabilities, ``.npz`` bags and predictions,
    ``.parquet`` embeddings, every tensor of ``model.pt``), K1 counted in
-   the MIL CV and the fine-tune. A program listed as deterministic that
+   the MIL CV and the fine-tune, K2 in (a)'s fine-tune steps and the
+   fine-tune. A program listed as deterministic that
    differs between its two runs fails the smoke; the one by design
    (``hist_mode: scatter``) is printed with its gap. Then (c) what the
    repairs replaced: the earlier ECE (``scatter_add``) 20 times on one
@@ -283,7 +299,8 @@ Phases; any failure exits non-zero before the final line:
 38. a JSON line with each device program's host and device time and
    launches a step; one with each path's wall time, busy share and AUC
    (phase 39's records among them); one with each kernel's launches (by
-   path), error and times (B=16 and B=80, and the launch floor); the card
+   path), error and times (K1 at B=16 and B=80, and the launch floor; K2
+   summed over a ResNet-50 and a ResNet-18 step's BNs); the card
    line again; then ``{"ok": true, "device": {...}}`` as the last line.
 
 Needs a CUDA device and the repo around it; it imports nothing of JAX.
@@ -463,6 +480,57 @@ def check_mil_head(torch, np):
     return float((card.cpu() - cpu).abs().max())
 
 
+def check_k2(torch, k2_paths):
+    """Phase 3(b): K2 (``csrc/weighted_bn.cu``) against its plain version at
+    every BN call of the ResNet-50 and ResNet-18 train steps at the
+    fine-tune's width (256 images of 224^2; ``weighted_bn_checks.check_call``:
+    one forward and backward, kernels and the float32 plain version each
+    held to float64, six launches, a second call equal bit for bit), then
+    each distinct call timed (``time_calls``: kernels, the plain version on
+    the card and ``F.batch_norm`` between CUDA events, beside the bytes
+    bound), summed over a step's BNs (one forward and one backward each).
+    -> record for the kernels line."""
+    from pd_fusion_torch.ops import weighted_bn as wbn
+    from pd_fusion_torch.ops import weighted_bn_checks as wc
+
+    wbn.reset_launch_counts()
+    calls = sorted({c for arch in K2_ARCHS for c in wc.bn_calls(arch, 224, 256)})
+    worst = {}
+    for shape, residual, relu in calls:
+        out = wc.check_call(shape, residual, relu, "cuda")
+        torch.cuda.empty_cache()
+        for k, (err, err_plain) in out.items():
+            if err > worst.get(k, (0.0, 0.0))[0]:
+                worst[k] = (err, err_plain)
+        print(f"K2 {shape} residual={int(residual)} relu={int(relu)} "
+              f"({wbn.launch_config(shape[0] * shape[2] * shape[3], shape[1])}): relative error "
+              f"off float64, kernels / plain float32: "
+              + ", ".join(f"{k} {e:.3e}/{ep:.3e}" for k, (e, ep) in out.items()))
+    k2_paths["check_calls"] = wbn.launch_counts["kernel"]
+    if wbn.launch_counts["kernel"] != 12 * len(calls):  # two calls of six launches each
+        raise RuntimeError(f"K2's checks: launches {wbn.launch_counts}")
+    rec = {"max_rel_err": max(e for e, _ in worst.values()), "worst": worst, "steps": {}}
+    warm_clocks(torch)
+    for arch in K2_ARCHS:
+        rows = wc.time_calls(arch)
+        torch.cuda.empty_cache()
+        step = {k: sum(r["count"] * (r[f"{k}_fwd_ms"] + r[f"{k}_bwd_ms"]) for r in rows)
+                for k in ("kernel", "plain", "library", "bound")}
+        rec["steps"][arch] = dict(step, rows=rows)
+        for r in rows:
+            print(f"K2 {arch} {r['shape']} residual={int(r['residual'])} relu={int(r['relu'])} "
+                  f"x{r['count']} (ms, forward/backward): kernels {r['kernel_fwd_ms']:.4f}/"
+                  f"{r['kernel_bwd_ms']:.4f}, bound {r['bound_fwd_ms']:.4f}/"
+                  f"{r['bound_bwd_ms']:.4f}, plain {r['plain_fwd_ms']:.4f}/"
+                  f"{r['plain_bwd_ms']:.4f}, F.batch_norm {r['library_fwd_ms']:.4f}/"
+                  f"{r['library_bwd_ms']:.4f}")
+        print(f"K2 {arch} step's BNs, one forward and one backward each, 256 x 224^2 (device, "
+              f"CUDA events): kernels {step['kernel']:.3f} ms, bytes bound {step['bound']:.3f} ms "
+              f"({step['bound'] / step['kernel']:.4f} of it), plain {step['plain']:.3f} ms, "
+              f"F.batch_norm (unweighted; the port never calls it) {step['library']:.3f} ms")
+    return rec
+
+
 K1_BWD_RANGE = "K1 backward (AttentionPool.backward)"
 
 
@@ -559,6 +627,11 @@ def _dev_ms(e) -> float:
 
 K1_SYMBOL = "attention_pool_fwd_kernel"
 K1_HOST_RANGE = "K1 wrapper (attention_pool_forward)"
+K2_SYMBOL = "wbn_"  # every kernel of csrc/weighted_bn.cu: wbn_stats_kernel, ...
+K2_ARCHS = ("resnet50", "resnet18")
+# calls of the fused BN in one ResNet-50 ft_step: 53 forwards at gate 0; at
+# gate 1 also 52 recomputed under remat (all but the stem's) and 53 backwards
+K2_STEP_CALLS = {0.0: 53, 1.0: 158}
 
 
 def profile_slice(torch, ap, cli, config_path: Path, out_dir: Path):
@@ -1663,9 +1736,13 @@ def ft_step_program(torch, ap, ft, fc, ec, TR, gate, B, L, hw):
     slices, the config's widths): host, device, launches and busy share a
     step (``program_profile``: one warm-up step, one timed, two profiled),
     the step's wall and the time to enqueue it, peak device memory, TFLOP/s
-    against the float32 bound, the top device ops, and K1's forward and
-    backward (its kernel by symbol, its backward's torch ops by range). ->
+    against the float32 bound, the top device ops, K1's forward and
+    backward (its kernel by symbol, its backward's torch ops by range), and
+    K2's kernels (by symbol) and its launches in the last step, which must
+    be three a call of the fused BN and never its plain version. ->
     record."""
+    from pd_fusion_torch.ops import weighted_bn as wbn
+
     backbone, head = fc.start_params()
     bp, hp = TR.params_to(backbone, device=DEV), TR.params_to(head, device=DEV)
     st = {"bp": bp, "hp": hp, "opt": {"backbone": ft.ft_optim.init_group(ft.trainable_leaves(bp)),
@@ -1689,11 +1766,17 @@ def ft_step_program(torch, ap, ft, fc, ec, TR, gate, B, L, hw):
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
+    wbn.reset_launch_counts()
     t0 = time.perf_counter()
     step()
     enqueue = time.perf_counter() - t0
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    rec["k2_step_launches"] = dict(wbn.launch_counts)
+    want = {"kernel": 3 * K2_STEP_CALLS[gate], "plain": 0}
+    if fc.ARCH != "resnet50" or rec["k2_step_launches"] != want:
+        raise RuntimeError(f"the {fc.ARCH} step at gate {gate}: K2 launches "
+                           f"{rec['k2_step_launches']}, expected {want}")
     rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     rec["peak_above_state_gib"] = (torch.cuda.max_memory_allocated() - base) / 2**30
     rec["enqueue_us"] = enqueue * 1e6
@@ -1719,16 +1802,25 @@ def ft_step_program(torch, ap, ft, fc, ec, TR, gate, B, L, hw):
         rec[f"{key}_share"] = ms / 2 / dev_ms
     if rec["k1_fwd_launches"] < 1 or (gate and rec["k1_bwd_launches"] < 1):
         raise RuntimeError(f"the fine-tune step shows no K1 forward or backward kernel: {rec}")
+    k2 = [e for e in rows if K2_SYMBOL in e.key]
+    rec["k2_us"] = sum(_dev_ms(e) for e in k2) / 2 * 1e3
+    rec["k2_launches"] = sum(e.count for e in k2) / 2
+    rec["k2_share"] = rec["k2_us"] / 1e3 / dev_ms
+    if rec["k2_launches"] != want["kernel"]:
+        raise RuntimeError(f"the profiled step shows {rec['k2_launches']} K2 kernels a step, "
+                           f"not {want['kernel']}")
     rec["gflop_per_image_fwd"] = f_img / 1e9
     return rec
 
 
-def run_ft_path(torch, np, yaml, ap, cli, tmp: Path, manifest: Path):
+def run_ft_path(torch, np, yaml, ap, cli, tmp: Path, manifest: Path, k2_paths):
     """Phases 20-22: one step card vs CPU; the full-width step profiled,
     frozen and not; the CLI CV at full width and reduced depth, then the
-    single split and the artifact's reload. -> (paths, programs, K1
-    launches of the CV)."""
+    single split and the artifact's reload. K2's launches on each path go
+    to ``k2_paths``. -> (paths, programs, K1 launches of the CV)."""
     import pandas as pd
+
+    from pd_fusion_torch.ops import weighted_bn as wbn
 
     from pd_fusion_torch.experiments import run_experiment
     from pd_fusion_torch.imaging import embed_checks as ec
@@ -1741,12 +1833,17 @@ def run_ft_path(torch, np, yaml, ap, cli, tmp: Path, manifest: Path):
     prm = dict(cfg["params"])
     programs, paths = {}, []
 
-    # phase 20: one step, card against CPU
+    # phase 20: one step, card against CPU (K2 on the card, its plain version on the CPU)
     t0 = time.perf_counter()
+    wbn.reset_launch_counts()
     errs = fc.compare_card_with_cpu(DEV)
+    k2_paths["ft_step_card_vs_cpu"] = wbn.launch_counts["kernel"]
+    if wbn.launch_counts["kernel"] <= 0:
+        raise RuntimeError(f"the step on the card launched no K2 kernel: {wbn.launch_counts}")
     print(f"fine-tune step card vs CPU ({fc.ARCH}, {fc.SIZE}^2, B=2, L=8, gated head "
           f"{fc.HIDDEN}/{fc.ATTN}, focal, a ragged row, dropout keeps given; "
-          f"models/ft_checks.py tolerances): {json.dumps(errs)}; "
+          f"models/ft_checks.py tolerances): {json.dumps(errs)}; K2 launches "
+          f"{wbn.launch_counts['kernel']} (plain on the CPU {wbn.launch_counts['plain']}); "
           f"{time.perf_counter() - t0:.3f} s")
 
     # phase 21: the full-width step, frozen and unfrozen, under the profiler
@@ -1766,6 +1863,10 @@ def run_ft_path(torch, np, yaml, ap, cli, tmp: Path, manifest: Path):
         print(f"    K1 forward {rec['k1_fwd_us']:.3f} us ({rec['k1_fwd_launches']:.0f} launches, "
               f"share {rec['k1_fwd_share']:.6f}); K1 backward (torch ops) {rec['k1_bwd_us']:.3f} "
               f"us ({rec['k1_bwd_launches']:.0f} launches, share {rec['k1_bwd_share']:.6f})")
+        print(f"    K2 (fused BN, forward and backward) {rec['k2_us']:.3f} us "
+              f"({rec['k2_launches']:.0f} launches, share {rec['k2_share']:.6f}); launches in an "
+              f"unprofiled step {rec['k2_step_launches']} ({K2_STEP_CALLS[gate]} calls)")
+        k2_paths[name] = rec["k2_step_launches"]["kernel"]
         for op, ms, count in rec["top"]:
             print(f"    {ms:10.3f} ms  x{count:<6.0f} {op}")
         programs[name] = rec
@@ -1793,10 +1894,11 @@ def run_ft_path(torch, np, yaml, ap, cli, tmp: Path, manifest: Path):
     out = tmp / "ft_run"
     ft.SLICE_CACHE.clear()
     ap.reset_launch_counts()
+    wbn.reset_launch_counts()
     t0 = time.perf_counter()
     agg = cli.main(["run", "--config", str(config), "--output-dir", str(out)])
     cv_wall = time.perf_counter() - t0
-    k1 = dict(ap.launch_counts)
+    k1, k2 = dict(ap.launch_counts), dict(wbn.launch_counts)
     names = ["results_aggregated.yaml", "fold_assignments.csv", "summary_table.csv"]
     names += [f"results_fold_{i}.yaml" for i in range(1, FT_FOLDS + 1)]
     names += [f"preds_fold_{i}_full_observation.csv" for i in range(1, FT_FOLDS + 1)]
@@ -1806,12 +1908,16 @@ def run_ft_path(torch, np, yaml, ap, cli, tmp: Path, manifest: Path):
         raise RuntimeError("the fine-tune CV does not hold the 7 scenarios")
     if k1["kernel"] <= 0 or k1["plain"] != 0:
         raise RuntimeError(f"the fine-tune CV: K1 launches {k1}")
+    if k2["kernel"] <= 0 or k2["plain"] != 0:
+        raise RuntimeError(f"the fine-tune CV: K2 launches {k2}")
+    k2_paths["mil_ft_cv"] = k2["kernel"]
     auc = on_disk["full_observation"]["roc_auc"]["mean"]
     if not math.isfinite(auc):
         raise RuntimeError(f"the fine-tune CV: ROC-AUC {auc}")
     print(f"fine-tune CV ({FT_FOLDS}-fold, {2 * FT_SUBJECTS} volumes, python -m pd_fusion_torch.cli "
           f"run --config <copy of {FT_CONFIG.name}>): wall {cv_wall:.3f} s, K1 launches "
-          f"{k1['kernel']}, plain 0, full_observation ROC-AUC {auc:.4f} +- "
+          f"{k1['kernel']}, plain 0, K2 launches {k2['kernel']}, plain 0, full_observation "
+          f"ROC-AUC {auc:.4f} +- "
           f"{on_disk['full_observation']['roc_auc']['std']:.4f} (no band: random backbone, "
           f"{FT_DEPTH['epochs']} epochs)")
     for scen, m in on_disk.items():
@@ -1832,6 +1938,7 @@ def run_ft_path(torch, np, yaml, ap, cli, tmp: Path, manifest: Path):
     single_config.write_text(yaml.safe_dump(single))
     run_out = tmp / "ft_single"
     ap.reset_launch_counts()
+    wbn.reset_launch_counts()
     t0 = time.perf_counter()
     run_experiment.train_pipeline = keep_model
     try:
@@ -1841,10 +1948,13 @@ def run_ft_path(torch, np, yaml, ap, cli, tmp: Path, manifest: Path):
     finally:
         run_experiment.train_pipeline = train_pipeline
     train_wall = time.perf_counter() - t0
-    train_k1 = dict(ap.launch_counts)
+    train_k1, train_k2 = dict(ap.launch_counts), dict(wbn.launch_counts)
     require_files(run_out, ["results.yaml", "model.pt", "preprocess.pkl"], "the fine-tune run")
-    if len(results) != 7 or train_k1["plain"] != 0 or train_k1["kernel"] <= 0:
-        raise RuntimeError(f"the fine-tune run: {len(results)} scenarios, K1 {train_k1}")
+    if len(results) != 7 or train_k1["plain"] != 0 or train_k1["kernel"] <= 0 \
+            or train_k2["plain"] != 0 or train_k2["kernel"] <= 0:
+        raise RuntimeError(f"the fine-tune run: {len(results)} scenarios, K1 {train_k1}, "
+                           f"K2 {train_k2}")
+    k2_paths["mil_ft_single"] = train_k2["kernel"]
     model = trained[0]
     base = getattr(model, "base_model", model)
     base.save(tmp / "ft_artifact.pt")
@@ -1862,7 +1972,8 @@ def run_ft_path(torch, np, yaml, ap, cli, tmp: Path, manifest: Path):
         raise RuntimeError(f"the reloaded fine-tune model predicts {want}")
     print(f"fine-tune single split (run --config <the copy without cv_folds>, augmentation "
           f"drawn from seed {FT_DRAWS_SEED}): wall "
-          f"{train_wall:.3f} s, K1 launches {train_k1['kernel']}; model.pt "
+          f"{train_wall:.3f} s, K1 launches {train_k1['kernel']}, K2 {train_k2['kernel']}; "
+          f"model.pt "
           f"({type(model).__name__}) and the mil_attention_ft artifact reloaded with load_model "
           f"predict {FT_PREDICT_BAGS} bags as the trained model (tta_inference 1): max abs err "
           f"{reload_err:.3e}, uncalibrated probabilities {want['trained'].min():.6f} to "
@@ -3283,6 +3394,8 @@ def run_dist_tier(torch, np, yaml, tmp: Path, manifest: Path, bench_ref, card):
     dry = json.loads(dry_out.read_text())
     if DEV == "cuda" and not all(n > 0 for n in dry["k1_launches"]):  # the CPU runs plain
         raise RuntimeError(f"K1 did not launch on every rank of the MIL-FT step: {dry}")
+    if any(n != 0 for n in dry["k2_launches"]):  # the group path keeps its torch-op BN
+        raise RuntimeError(f"the data-parallel MIL-FT step launched K2: {dry['k2_launches']}")
     walls = dry["walls"]
     print(f"phase 37(b) dry run, {label}: {child['walls']['dryrun']:.3f} s; "
           f"MIL-FT step ({dry['ft_arch']}, {dry['ft_px']}^2, {dry['ft_bags']} bags x "
@@ -3291,7 +3404,8 @@ def run_dist_tier(torch, np, yaml, tmp: Path, manifest: Path, bench_ref, card):
           f"{dry['diffs']['mil_ft_grads']:.3e} (relative) off the world-1 step's, in "
           f"{walls['mil_ft_grads_world1_s']:.3f} and {walls['mil_ft_grads_sharded_s']:.3f} s; "
           f"K1 launches by "
-          f"rank {dry['k1_launches']}; peak device memory by rank "
+          f"rank {dry['k1_launches']}, K2 {dry['k2_launches']} (torch-op BN); peak device "
+          f"memory by rank "
           f"{[round(m, 1) for m in dry['peak_mib']]} MiB; CNN3D world-1 "
           f"{walls['cnn3d_world1_s']:.3f} s, world-2 {walls['cnn3d_sharded_s']:.3f} s; replicas "
           f"bitwise equal {dry['replicas_equal']}")
@@ -3624,23 +3738,24 @@ def ft_single_rerun_spec(yaml, np, tmp: Path, det: Path) -> dict:
             "with_model": True, "seeded_ft_draws": True,
             "predict_bags": pd.read_csv(tmp / "manifest_ft.csv")["t1wbrain_path"].tolist()[
                 :FT_PREDICT_BAGS],
-            "expect_k1": True, "first": "phase 22",
+            "expect_k1": True, "expect_k2": True, "first": "phase 22",
             "what": "python -m pd_fusion_torch.cli run --config <phase 22's single split>"}
 
 
 def determinism_child(spec_path) -> int:
     """Phase 39(b)'s child (``chip_smoke.py --determinism-child SPEC``): each
     of ``spec["runs"]`` through its module's ``main(argv)`` in this fresh
-    process, K1's counts zeroed before each (a run with
+    process, K1's and K2's counts zeroed before each (a run with
     ``seeded_ft_draws`` under ``seeded_ft_draws()``, then its ``model.pt``
     on ``predict_bags``, written to ``predictions.npz``); its wall and K1's
-    counts written to ``spec["out"]``."""
+    counts and K2's written to ``spec["out"]``."""
     import importlib
 
     import numpy as np
     import torch
 
     from pd_fusion_torch.ops import attention_pool as ap
+    from pd_fusion_torch.ops import weighted_bn as wbn
     from pd_fusion_torch.utils.device import get_device
 
     spec = json.loads(Path(spec_path).read_text())
@@ -3649,6 +3764,7 @@ def determinism_child(spec_path) -> int:
     for run in spec["runs"]:
         main = importlib.import_module(run["module"]).main
         ap.reset_launch_counts()
+        wbn.reset_launch_counts()
         t0 = time.perf_counter()
         with seeded_ft_draws() if run.get("seeded_ft_draws") else contextlib.nullcontext():
             main(run["argv"])
@@ -3658,7 +3774,8 @@ def determinism_child(spec_path) -> int:
                          y_prob=predict_ft_bags(out / "model.pt", run["predict_bags"]))
         if torch.cuda.is_available():
             torch.cuda.synchronize()
-        rec[run["name"]] = {"wall_s": time.perf_counter() - t0, "k1": dict(ap.launch_counts)}
+        rec[run["name"]] = {"wall_s": time.perf_counter() - t0, "k1": dict(ap.launch_counts),
+                            "k2": dict(wbn.launch_counts)}
     Path(spec["out"]).write_text(json.dumps(rec))
     return 0
 
@@ -3722,9 +3839,11 @@ def determinism_rerun(np, yaml, tmp: Path, runs, child=None):
     """Phase 39(b): ``runs`` ({name, module, argv, out, ref, what}) again in
     one fresh child (``child``, from ``start_determinism_child``, started
     here if not given), each one's artifacts in ``out`` held bit for bit
-    against ``ref`` (the first run's, read by ``dir_artifacts``). Raises,
-    after printing every run's line, when one differs. -> (records, {name:
-    K1 launches})."""
+    against ``ref`` (the first run's, read by ``dir_artifacts``); on the
+    card K1 must launch where ``expect_k1`` and K2 where ``expect_k2`` says,
+    neither's plain version ever (each record holds its K2 launches).
+    Raises, after printing every run's line, when one differs. -> (records,
+    {name: K1 launches})."""
     from pd_fusion_torch.utils import determinism_checks as dc
 
     wall = _finish_determinism_child(child or start_determinism_child(tmp, runs))
@@ -3736,16 +3855,19 @@ def determinism_rerun(np, yaml, tmp: Path, runs, child=None):
             raise RuntimeError(f"phase 39(b) {r['name']} wrote {sorted(again)}, the first run "
                                f"{sorted(r['ref'])}")
         twice = dc.compare({k: r["ref"][k] for k in again}, again)
-        k1 = child[r["name"]]["k1"]
+        k1, k2 = child[r["name"]]["k1"], child[r["name"]]["k2"]
         if DEV == "cuda" and (k1["plain"] != 0 or (k1["kernel"] > 0) != r["expect_k1"]):
             raise RuntimeError(f"phase 39(b) {r['name']}: K1 launches {k1}")
+        expect_k2 = r.get("expect_k2", False)
+        if DEV == "cuda" and (k2["plain"] != 0 or (k2["kernel"] > 0) != expect_k2):
+            raise RuntimeError(f"phase 39(b) {r['name']}: K2 launches {k2}")
         rows.append({"name": r["name"], "source": f"chip_smoke.py --determinism-child: {r['what']}",
                      "width": f"a fresh process against {r['first']}",
                      "equal": all(eq for eq, _ in twice.values()),
                      "gap": max((g for _, g in twice.values()), default=0.0),
                      "unequal_outputs": [k for k, (eq, _) in twice.items() if not eq],
                      "flagged": "not measured", "deterministic": True, "note": "",
-                     "two_runs_s": child[r["name"]]["wall_s"]})
+                     "two_runs_s": child[r["name"]]["wall_s"], "k2_launches": k2["kernel"]})
         print_determinism(rows[-1])
     print(f"phase 39(b) child (beside 39(a)): {wall:.3f} s with the process's start; runs "
           f"{json.dumps({k: round(v['wall_s'], 3) for k, v in child.items()})} s")
@@ -3779,6 +3901,7 @@ def main() -> int:
     from pd_fusion_torch import cli
     from pd_fusion_torch.ops import attention_pool as ap
     from pd_fusion_torch.ops import attention_pool_checks as checks
+    from pd_fusion_torch.ops import weighted_bn as wbn
     from pd_fusion_torch.utils.device import get_device
 
     # phase 1: the card
@@ -3794,12 +3917,14 @@ def main() -> int:
 
     sources = [ap.SOURCE] + ([args.compare_with.resolve()] if args.compare_with else [])
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(sources) + 1) as pool:
+    with ThreadPoolExecutor(len(sources) + 2) as pool:
         host_lib = pool.submit(native.build_library)
+        k2_lib = pool.submit(ap.build_library, wbn.SOURCE)
         libs = list(pool.map(ap.build_library, sources))
-        host_lib = host_lib.result()
-    print(f"build: {', '.join(map(str, libs + [host_lib]))} in {time.perf_counter() - t0:.2f} s")
-    for src, lib in zip(sources, libs):
+        host_lib, k2_lib = host_lib.result(), k2_lib.result()
+    print(f"build: {', '.join(map(str, libs + [k2_lib, host_lib]))} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for src, lib in zip(sources + [wbn.SOURCE], libs + [k2_lib]):
         log = lib.with_suffix(".log").read_text().strip()
         print(f"-Xptxas=-v for {src}:\n{log}")
     check_spills(libs[0].with_suffix(".log").read_text())
@@ -3816,6 +3941,11 @@ def main() -> int:
         max_err = max(max_err, err)
     head_err = check_mil_head(torch, np)
     print(f"mil_apply D={EMB_DIM} H=256 attn=128 card vs CPU: max abs err {head_err:.3e}")
+
+    # phase 3(b): K2 against its plain version at every BN of both ResNet
+    # train steps, then timed; its launches are counted by path from here on
+    k2_paths = {}
+    k2 = check_k2(torch, k2_paths)
 
     warm_clocks(torch)
     floor_ms = launch_floor_ms(torch)
@@ -3973,7 +4103,8 @@ def main() -> int:
     try:
         embed_paths, embed_programs, built_launches, manifest = run_embed_path(
             torch, np, yaml, ap, cli, tmp)
-        ft_paths, ft_programs, ft_launches = run_ft_path(torch, np, yaml, ap, cli, tmp, manifest)
+        ft_paths, ft_programs, ft_launches = run_ft_path(torch, np, yaml, ap, cli, tmp, manifest,
+                                                         k2_paths)
         # phases 23-27: the ds001907 volume-feature path on the same volumes;
         # a dev dataset
         vol_paths, vol_programs, vol_launches = run_volume_path(torch, np, yaml, ap, cli, tmp,
@@ -4037,6 +4168,7 @@ def main() -> int:
         bench_ref["bag_wall_s"] = next(p["wall_s"] for p in paths if p["name"] == "embed_mil_bags")
         nccl_rec = run_backend_rule_and_nccl(torch)
         dist_rec, dist_launches = run_dist_tier(torch, np, yaml, tmp, manifest, bench_ref, card)
+        k2_paths["mil_ft_data_parallel"] = sum(dist_rec["dryrun"]["k2_launches"])
         paths.append({**dist_rec, "nccl_world1": nccl_rec})
         print(f"phases 36-37: {time.perf_counter() - t_new:.3f} s")
 
@@ -4051,12 +4183,19 @@ def main() -> int:
         # time; 39(c)'s timings start after both have ended
         reruns = rerun_specs(yaml, np, tmp, manifest, bench_ref)
         child = start_determinism_child(tmp, reruns)
+        wbn.reset_launch_counts()
         try:
             det_rows, det_launches = determinism_programs(torch, ap, kept=kept)
+            k2_det = dict(wbn.launch_counts)
+            if k2_det["kernel"] <= 0 or k2_det["plain"] != 0:
+                raise RuntimeError(f"phase 39's fine-tune steps did not run K2 alone: {k2_det}")
         except BaseException:
             stop_determinism_child(child)
             raise
+        k2_paths["determinism_programs"] = k2_det["kernel"]
         child_rows, child_k1 = determinism_rerun(np, yaml, tmp, reruns, child)
+        k2_paths["determinism_child_mil_ft_single"] = next(
+            r["k2_launches"] for r in child_rows if r["name"] == "mil_ft_single")
         turns = determinism_turns(torch, kept)
         del kept
         paths.append({"name": "determinism", "programs": det_rows, "fresh_process": child_rows,
@@ -4102,6 +4241,25 @@ def main() -> int:
         "ms_b80": t80["kernel_ms"],
         "plain_ms_b80": t80["plain_ms"],
         "bound_ms_b80": t80["bound_ms"],
+    }, {
+        "name": "weighted_bn",
+        "route": "cuda",
+        "source": "src/pd_fusion_torch/csrc/weighted_bn.cu",
+        "replaces": None,  # the JAX package's BN is jnp, fused by XLA
+        "launches": sum(k2_paths.values()),
+        "launches_by_path": k2_paths,
+        "max_rel_err": k2["max_rel_err"],
+        "ms": k2["steps"]["resnet50"]["kernel"],
+        "plain_ms": k2["steps"]["resnet50"]["plain"],
+        "bound_ms": k2["steps"]["resnet50"]["bound"],
+        "bound_by": "bytes",
+        "library_ms": k2["steps"]["resnet50"]["library"],
+        "shape": "the 53 BNs of a ResNet-50 train step, one forward and one backward each, "
+                 "256 x 224^2 f32",
+        "ms_resnet18": k2["steps"]["resnet18"]["kernel"],
+        "plain_ms_resnet18": k2["steps"]["resnet18"]["plain"],
+        "bound_ms_resnet18": k2["steps"]["resnet18"]["bound"],
+        "library_ms_resnet18": k2["steps"]["resnet18"]["library"],
     }]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -51,15 +51,23 @@ normalizes with batch statistics and leaves the running statistics alone;
 moved by an EMA (torch ``.train()`` semantics: the biased variance
 normalizes, the unbiased one enters the EMA, momentum 0.1), restricted to
 the images whose ``sample_weight`` is 1. ``nn.BatchNorm2d`` cannot weight
-images, so BN is written out over NCHW. Each residual block is
-rematerialized in training (``torch.utils.checkpoint``, as the JAX
-package's ``jax.checkpoint``); the running statistics are a functional
-output, so the recompute in the backward pass does not move them again.
+images, so the train-mode BN, with the residual add and the ReLU that
+follow it in a block or the stem, is the port's own autograd Function
+(``ops/weighted_bn.py::WeightedBN``): on the card three hand-written
+kernel launches forward and three backward, with sums in a fixed order and
+no float atomics; on the CPU the same arithmetic in torch ops. With no
+gradient wanted (the frozen step) it runs its forward alone. Each residual
+block is rematerialized in training (``torch.utils.checkpoint``, as the JAX
+package's ``jax.checkpoint``), so the Function runs a second time for each
+block's BNs in the backward pass; the running statistics are a functional
+output, so that recompute does not move them again.
 ``merge_bn_stats`` grafts them onto an optimizer's output, and
 ``bn_buffer_mask`` marks the leaves that weight decay may touch.
 
 Data-parallel training (``resnet_apply_train(group=)``, one process per
-card): every BN takes the statistics of the whole group's batch. Each
+card): every BN takes the statistics of the whole group's batch, in torch
+ops (``_bn_train_group``: all-reduces stand between the sums and the
+normalization, where the fused kernels have none). Each
 rank sums ``sum(w * x)`` and its ``sum(w) * H * W``, one all-reduce gives
 the global mean, a second the global ``sum(w * (x - mean)^2)``: the two
 passes of the one-card formula over the union of the ranks' images. The
@@ -77,6 +85,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from pd_fusion_torch.ops import weighted_bn
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -235,51 +245,45 @@ def _normalize(x, mean, var, p):
     return (x - mean[:, None, None]) * (inv * p["gamma"])[:, None, None] + p["beta"][:, None, None]
 
 
-def _bn_infer(x, p):
-    return _normalize(x, p["mean"], p["var"], p), p
+def _then(y, identity, relu):
+    """What follows a BN in a block: ``+ identity``, then ReLU, if asked."""
+    if identity is not None:
+        y = y + identity
+    return torch.relu(y) if relu else y
 
 
-def _bn_batch(x, p):
+def _bn_infer(x, p, identity=None, relu=False):
+    return _then(_normalize(x, p["mean"], p["var"], p), identity, relu), p
+
+
+def _bn_batch(x, p, identity=None, relu=False):
     """``_bn(train=True)`` of the JAX package: batch statistics, no update."""
-    return _normalize(x, torch.mean(x, dim=(0, 2, 3)), torch.var(x, dim=(0, 2, 3), correction=0),
-                      p), p
+    return _then(_normalize(x, torch.mean(x, dim=(0, 2, 3)),
+                            torch.var(x, dim=(0, 2, 3), correction=0), p), identity, relu), p
 
 
-def _bn_train(x, p, momentum, w=None, group=None):
-    """Batch-statistic BN with the running-statistic EMA. Normalizes with the
-    biased variance and moves the running variance by the unbiased one,
-    ``n / (n - 1)`` with ``n = sum(w) * H * W``. With ``w`` ([N], 0/1) the
-    statistics are those of the images whose weight is 1: the others are
-    normalized too, but add nothing to the statistics. With ``group`` the
-    statistics are those of every rank's images. -> (normalized, the BN's
-    params with the new running statistics, detached)."""
-    if group is not None:
-        from pd_fusion_torch.parallel.distributed import all_reduce_differentiable as all_reduce
+def _bn_train_group(x, p, momentum, w, group, identity=None, relu=False):
+    """The train-mode BN of ``ops/weighted_bn.py`` (batch statistics of the
+    images whose weight ``w`` is 1, the running statistics' EMA with the
+    unbiased variance, then ``+ identity`` and ReLU if asked) with the
+    statistics of every rank's images in ``group``, in torch ops: two
+    all-reduces stand between the sums and the normalization. -> (output,
+    the BN's params with the new running statistics, detached)."""
+    from pd_fusion_torch.parallel.distributed import all_reduce_differentiable as all_reduce
 
-        w = torch.ones(x.shape[0], dtype=x.dtype, device=x.device) if w is None else w
-        wb = w[:, None, None, None]
-        s = all_reduce(torch.cat([torch.sum(x * wb, dim=(0, 2, 3)),
-                                  (torch.sum(w) * (x.shape[2] * x.shape[3]))[None]]),
-                       group=group)
-        n = s[-1].detach()
-        mean = s[:-1] / n
-        var = all_reduce(torch.sum(torch.square(x - mean[:, None, None]) * wb, dim=(0, 2, 3)),
-                         group=group) / n
-        unbiased = var * (n / torch.clamp(n - 1.0, min=1.0))
-    elif w is None:
-        mean = torch.mean(x, dim=(0, 2, 3))
-        var = torch.var(x, dim=(0, 2, 3), correction=0)
-        n = x.shape[0] * x.shape[2] * x.shape[3]
-        unbiased = var * (n / max(n - 1, 1))
-    else:
-        wb = w[:, None, None, None]
-        n = torch.sum(w) * (x.shape[2] * x.shape[3])
-        mean = torch.sum(x * wb, dim=(0, 2, 3)) / n
-        var = torch.sum(torch.square(x - mean[:, None, None]) * wb, dim=(0, 2, 3)) / n
-        unbiased = var * (n / torch.clamp(n - 1.0, min=1.0))
+    w = torch.ones(x.shape[0], dtype=x.dtype, device=x.device) if w is None else w
+    wb = w[:, None, None, None]
+    s = all_reduce(torch.cat([torch.sum(x * wb, dim=(0, 2, 3)),
+                              (torch.sum(w) * (x.shape[2] * x.shape[3]))[None]]),
+                   group=group)
+    n = s[-1].detach()
+    mean = s[:-1] / n
+    var = all_reduce(torch.sum(torch.square(x - mean[:, None, None]) * wb, dim=(0, 2, 3)),
+                     group=group) / n
+    unbiased = var * (n / torch.clamp(n - 1.0, min=1.0))
     new_p = dict(p, mean=(1.0 - momentum) * p["mean"] + momentum * mean.detach(),
                  var=(1.0 - momentum) * p["var"] + momentum * unbiased.detach())
-    return _normalize(x, mean, var, p), new_p
+    return _then(_normalize(x, mean, var, p), identity, relu), new_p
 
 
 def _he_conv(gen, cout, cin, kh, kw):
@@ -370,22 +374,26 @@ def _nchw(x):
 
 
 def _block(x, p, stride, basic, bn):
-    """One residual block; ``bn(y, bn_params) -> (normalized, bn_params
-    after)``. -> (output, the block's params after)."""
+    """One residual block; ``bn(y, bn_params, identity=None, relu=False) ->
+    (normalized, then + identity and ReLU if asked; bn_params after)``. ->
+    (output, the block's params after)."""
     new_p = dict(p)
     if basic:
-        h, new_p["bn1"] = bn(_conv(x, p["conv1"]["w"], stride=stride), p["bn1"])
-        h, new_p["bn2"] = bn(_conv(torch.relu(h), p["conv2"]["w"]), p["bn2"])
+        h, new_p["bn1"] = bn(_conv(x, p["conv1"]["w"], stride=stride), p["bn1"], relu=True)
+        h = _conv(h, p["conv2"]["w"])
+        last = "bn2"
     else:
-        h, new_p["bn1"] = bn(_conv(x, p["conv1"]["w"]), p["bn1"])
-        h, new_p["bn2"] = bn(_conv(torch.relu(h), p["conv2"]["w"], stride=stride), p["bn2"])
-        h, new_p["bn3"] = bn(_conv(torch.relu(h), p["conv3"]["w"]), p["bn3"])
+        h, new_p["bn1"] = bn(_conv(x, p["conv1"]["w"]), p["bn1"], relu=True)
+        h, new_p["bn2"] = bn(_conv(h, p["conv2"]["w"], stride=stride), p["bn2"], relu=True)
+        h = _conv(h, p["conv3"]["w"])
+        last = "bn3"
     identity = x
     if "downsample" in p:
         identity, ds_bn = bn(_conv(x, p["downsample"]["conv"]["w"], stride=stride),
                              p["downsample"]["bn"])
         new_p["downsample"] = dict(p["downsample"], bn=ds_bn)
-    return torch.relu(h + identity), new_p
+    out, new_p[last] = bn(h, p[last], identity, relu=True)
+    return out, new_p
 
 
 def _forward(params, x, arch, bn, remat):
@@ -393,8 +401,9 @@ def _forward(params, x, arch, bn, remat):
     autograd on, each block is recomputed in the backward pass."""
     basic = _CONFIGS[arch]["block"] == "basic"
     new_params = dict(params)
-    out, new_params["bn1"] = bn(_conv(x, params["conv1"]["w"], stride=2, padding=3), params["bn1"])
-    out = _pool(torch.relu(out))
+    out, new_params["bn1"] = bn(_conv(x, params["conv1"]["w"], stride=2, padding=3), params["bn1"],
+                                relu=True)
+    out = _pool(out)
     remat = remat and torch.is_grad_enabled()
     for li in range(4):
         blocks = []
@@ -420,13 +429,16 @@ def resnet_apply(params, x, arch: str = "resnet18", train: bool = False):
 def resnet_apply_train(params, x, arch: str = "resnet18", momentum: float = 0.1,
                        sample_weight=None, group=None):
     """Train-mode forward -> (embeddings, params with the running statistics
-    moved by ``_bn_train``); blocks rematerialized. ``sample_weight`` ([N]
-    0/1) restricts every BN's statistics to the weighted images, so a batch
-    padded to a fixed shape has the unpadded batch's statistics. With
+    moved by ``weighted_bn.bn_train``); blocks rematerialized.
+    ``sample_weight`` ([N] 0/1) restricts every BN's statistics to the
+    weighted images, so a batch padded to a fixed shape has the unpadded
+    batch's statistics. With
     ``group`` (a process group whose ranks hold the other images of the
     batch) the statistics are the whole batch's."""
-    def bn(y, p):
-        return _bn_train(y, p, momentum, sample_weight, group)
+    def bn(y, p, identity=None, relu=False):
+        if group is not None:
+            return _bn_train_group(y, p, momentum, sample_weight, group, identity, relu)
+        return weighted_bn.bn_train(y, p, momentum, BN_EPS, sample_weight, identity, relu)
 
     return _forward(params, _nchw(x), arch, bn, remat=True)
 

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from pd_fusion_torch.nn import resnet as R
+from pd_fusion_torch.ops import weighted_bn_checks as wbc
 
 # (kernel size, stride) -> the kind's name in PERF.md's table
 KINDS = {(7, 2): "7x7/2 stem", (1, 1): "1x1/1", (1, 2): "1x1/2", (3, 1): "3x3/1",
@@ -135,7 +136,9 @@ def backbone_grads(arch: str, plain: bool, device="cpu") -> Dict[str, torch.Tens
     embeddings (a seeded init, 3 seeded images at 64^2, the last at sample
     weight 0) with respect to every trainable leaf and the input
     (``"x"``); ``plain``: through ``F.conv2d``'s autograd
-    (``cudnn_backward``), else the port's. -> {leaf path: gradient}."""
+    (``cudnn_backward``), else the port's. Both forms take the fused BN's
+    plain version (``weighted_bn_checks.plain_everywhere``: its kernels
+    take float32 alone). -> {leaf path: gradient}."""
     f64 = torch.float64
     params = R.params_to(R.init_resnet(torch.Generator().manual_seed(3), arch), device=device,
                          dtype=f64)
@@ -145,7 +148,7 @@ def backbone_grads(arch: str, plain: bool, device="cpu") -> Dict[str, torch.Tens
     wrt["x"] = torch.rand(3, 64, 64, 3, generator=gen, dtype=f64).to(device).requires_grad_()
     coef = torch.linspace(-1.0, 1.0, R.emb_dim(arch), dtype=f64, device=device)
     weight = torch.tensor([1.0, 1.0, 0.0], dtype=f64, device=device)
-    with cudnn_backward() if plain else contextlib.nullcontext():
+    with cudnn_backward() if plain else contextlib.nullcontext(), wbc.plain_everywhere():
         emb, _ = R.resnet_apply_train(params, wrt["x"], arch, sample_weight=weight)
         grads = torch.autograd.grad(torch.sum(emb * coef), list(wrt.values()))
     return dict(zip(wrt, grads))

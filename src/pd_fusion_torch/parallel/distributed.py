@@ -362,10 +362,11 @@ def gather_rows(t: torch.Tensor, group=None) -> torch.Tensor:
 
 
 def build_native_once(kernels: bool, host: bool):
-    """Compile the K1 library (``kernels``, on a CUDA rank only) and the
-    host IO library (``host``) on the first local rank while the others wait
-    at a barrier; they then load the cached files. Without a process group
-    of several ranks: a no-op (each builds at first use)."""
+    """Compile the CUDA kernels' libraries (``kernels``: K1 and the fused
+    BN, on a CUDA rank only) and the host IO library (``host``) on the
+    first local rank while the others wait at a barrier; they then load the
+    cached files. Without a process group of several ranks: a no-op (each
+    builds at first use)."""
     if world_size() <= 1 or not (kernels or host):
         return
     from pd_fusion_torch.utils.device import get_device
@@ -373,9 +374,10 @@ def build_native_once(kernels: bool, host: bool):
     kernels = kernels and get_device().type == "cuda"
     if local_rank() == 0:
         if kernels:
-            from pd_fusion_torch.ops import attention_pool
+            from pd_fusion_torch.ops import attention_pool, weighted_bn
 
             attention_pool.build_library()
+            attention_pool.build_library(weighted_bn.SOURCE)
         if host:
             from pd_fusion_torch.imaging import native
 

@@ -99,15 +99,18 @@ def _max_rel_diff(a, b) -> float:
 
 
 @contextlib.contextmanager
-def _plain_pool():
-    """The MIL head pools with K1's plain version (for a float64 check; K1
-    takes float32 only)."""
+def _plain_kernels():
+    """The MIL head pools with K1's plain version and every train-mode BN
+    takes the fused BN's plain version (for a float64 check; the kernels
+    take float32 only)."""
     from pd_fusion_torch.nn import mil
     from pd_fusion_torch.ops.attention_pool import attention_pool_reference
+    from pd_fusion_torch.ops.weighted_bn_checks import plain_everywhere
 
     kernel, mil.attention_pool = mil.attention_pool, attention_pool_reference
     try:
-        yield
+        with plain_everywhere():
+            yield
     finally:
         mil.attention_pool = kernel
 
@@ -291,8 +294,10 @@ def run(size: str = "small", meshes=None) -> dict:
     """The six legs on this process group (every rank calls it); the
     moddrop, MoE and GBDT legs once on each (fold, data) shape of
     ``meshes`` (by default the JAX dry run's). -> on every rank: {"mesh",
-    "diffs", "walls", "replicas_equal", "k1_launches" (per rank),
-    "peak_mib" (per rank, CUDA only)}."""
+    "diffs", "walls", "replicas_equal", "k1_launches" and "k2_launches"
+    (per rank: K1's and the fused BN's kernel launches in the sharded MIL-FT
+    step, whose BN keeps its torch ops), "peak_mib" (per rank, CUDA
+    only)}."""
     import torch.distributed as dist
 
     from pd_fusion_torch.imaging.pipeline import embed_slices_batch
@@ -310,7 +315,7 @@ def run(size: str = "small", meshes=None) -> dict:
         init_resnet,
         params_to,
     )
-    from pd_fusion_torch.ops import attention_pool
+    from pd_fusion_torch.ops import attention_pool, weighted_bn
     from pd_fusion_torch.utils.device import get_device
 
     cfg = SIZES[size]
@@ -356,10 +361,11 @@ def run(size: str = "small", meshes=None) -> dict:
                 "head": ft_optim.init_group(trainable_leaves(head))}
 
     def grads64(batch, group=None):
-        """The step's gradients in float64 (the plain pool: K1 takes float32)."""
+        """The step's gradients in float64 (the plain pool and BN: the
+        kernels take float32)."""
         b64, h64 = params_to(backbone, dtype=torch.float64), params_to(head, dtype=torch.float64)
         hyper64 = dict(hyper, mean=hyper["mean"].double(), std=hyper["std"].double())
-        with _plain_pool():
+        with _plain_kernels():
             return ft_grads(b64, h64, {k: v.double() for k, v in batch.items()}, 1.0, hyper64,
                             group=group)[:2]
 
@@ -378,11 +384,12 @@ def run(size: str = "small", meshes=None) -> dict:
     ref = legs.world1("mil_ft", lambda: ft_step(backbone, head, opt_state(), whole, 1.0,
                                                 hyper)[:2])
     attention_pool.reset_launch_counts()
+    weighted_bn.reset_launch_counts()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     got = legs.sharded("mil_ft", lambda: ft_step(backbone, head, opt_state(), local_batch, 1.0,
                                                  hyper, group=world)[:2])
-    k1 = attention_pool.launch_counts["kernel"]
+    k1, k2 = attention_pool.launch_counts["kernel"], weighted_bn.launch_counts["kernel"]
     peak = torch.cuda.max_memory_allocated(dev) / 2**20 if dev.type == "cuda" else 0.0
     replicas["mil_ft"] = _replicas_equal(got, world)
     legs.check("mil_ft", ref, got, TOL["params"])
@@ -421,14 +428,15 @@ def run(size: str = "small", meshes=None) -> dict:
 
     if not all(replicas.values()):
         raise AssertionError(f"replicas differ: {replicas}")
-    per_rank = distributed.all_gather(torch.tensor([float(k1), peak], dtype=torch.float64),
-                                      world)
+    per_rank = distributed.all_gather(torch.tensor([float(k1), peak, float(k2)],
+                                                   dtype=torch.float64), world)
     result = {
         "meshes": [list(m) for m in meshes], "world_size": W, "size": size,
         "ft_bags": B, "ft_slices": L, "ft_px": cfg["ft_px"],
         "ft_arch": arch, "diffs": legs.diffs, "walls": legs.walls,
         "replicas_equal": replicas, "backend": distributed.backend(),
         "k1_launches": [int(r[0]) for r in per_rank],
+        "k2_launches": [int(r[2]) for r in per_rank],
         "peak_mib": [float(r[1]) for r in per_rank],
     }
     if distributed.is_primary():

@@ -133,14 +133,14 @@ Phases; any failure exits non-zero before the final line:
 21. the fine-tune step at the config's full width (B=4, L=64, 160^2 ->
    224^2), frozen and unfrozen, under ``torch.profiler``: device and host
    time, launches, busy share, the step's wall and enqueue time, peak
-   device memory (blocks rematerialized), TFLOP/s against the float32
-   bound, the top device ops, and K1's kernel (by its symbol) and its
+   device memory, TFLOP/s against the float32 bound, the top device ops,
+   and K1's kernel (by its symbol) and its
    torch-op backward (a ``record_function`` range) with their share of the
    step; the profile must hold no ``convolution_backward`` op (the
    ResNet's convolution gradients are the port's own,
    ``nn/resnet.py::_Conv2d``, not cuDNN's atomic backward kernels); K2's
    kernels (by symbol) and its launches in an unprofiled step, which must
-   be 3 a fused-BN call: 159 frozen, 474 unfrozen, the plain version 0;
+   be 3 a fused-BN call: 159 frozen, 318 unfrozen, the plain version 0;
 22. the fine-tune CV through the CLI on a copy of
    ``configs/openneuro_ds001907_resnet2d_mil_ft.yaml`` at every width of
    the config, on 24 of phase 14's subjects x 2 sessions, 2 folds, 2 epochs
@@ -630,8 +630,8 @@ K1_HOST_RANGE = "K1 wrapper (attention_pool_forward)"
 K2_SYMBOL = "wbn_"  # every kernel of csrc/weighted_bn.cu: wbn_stats_kernel, ...
 K2_ARCHS = ("resnet50", "resnet18")
 # calls of the fused BN in one ResNet-50 ft_step: 53 forwards at gate 0; at
-# gate 1 also 52 recomputed under remat (all but the stem's) and 53 backwards
-K2_STEP_CALLS = {0.0: 53, 1.0: 158}
+# gate 1 also 53 backwards
+K2_STEP_CALLS = {0.0: 53, 1.0: 106}
 
 
 def profile_slice(torch, ap, cli, config_path: Path, out_dir: Path):
@@ -1722,13 +1722,13 @@ def predict_ft_bags(path: Path, bags):
 
 
 def ft_flops(ec, TR, backbone, arch, size, n_img, train_backbone):
-    """Convolution FLOPs of one step: the forward; unfrozen also the blocks'
-    recompute (remat) and the backward (weight and data gradients; the stem
-    needs no data gradient): 4 F - 2 F_stem an image."""
+    """Convolution FLOPs of one step: the forward; unfrozen also the
+    backward (weight and data gradients; the stem needs no data gradient):
+    3 F - F_stem an image."""
     f = ec.resnet_flops(TR.fold_bn_inference(backbone, arch), arch, size)
     out = (size + 2 * 3 - 7) // 2 + 1
     f_stem = 2 * out * out * 64 * 3 * 7 * 7
-    return n_img * (4 * f - 2 * f_stem if train_backbone else f), f
+    return n_img * (3 * f - f_stem if train_backbone else f), f
 
 
 def ft_step_program(torch, ap, ft, fc, ec, TR, gate, B, L, hw):
@@ -1852,7 +1852,7 @@ def run_ft_path(torch, np, yaml, ap, cli, tmp: Path, manifest: Path, k2_paths):
     for name, gate in (("mil_ft_step_frozen", 0.0), ("mil_ft_step_unfrozen", 1.0)):
         rec = ft_step_program(torch, ap, ft, fc, ec, TR, gate, B, L, hw)
         print_program(f"{name} (B={B}, L={L}, {hw}^2 -> {fc.SIZE}^2, {fc.ARCH} train-mode BN, "
-                      f"remat, gated head, focal, two-group Adam)", rec)
+                      f"gated head, focal, two-group Adam)", rec)
         print(f"    step wall {rec['wall_us']:.1f} us (enqueue {rec['enqueue_us']:.1f} us); peak "
               f"{rec['peak_gib']:.3f} GiB ({rec['peak_above_state_gib']:.3f} above params, state "
               f"and batch); {rec['tflop']:.3f} TFLOP a step, {rec['tflops']:.2f} TFLOP/s over "

@@ -56,13 +56,17 @@ follow it in a block or the stem, is the port's own autograd Function
 (``ops/weighted_bn.py::WeightedBN``): on the card three hand-written
 kernel launches forward and three backward, with sums in a fixed order and
 no float atomics; on the CPU the same arithmetic in torch ops. With no
-gradient wanted (the frozen step) it runs its forward alone. Each residual
-block is rematerialized in training (``torch.utils.checkpoint``, as the JAX
-package's ``jax.checkpoint``), so the Function runs a second time for each
-block's BNs in the backward pass; the running statistics are a functional
-output, so that recompute does not move them again.
-``merge_bn_stats`` grafts them onto an optimizer's output, and
-``bn_buffer_mask`` marks the leaves that weight decay may touch.
+gradient wanted (the frozen step) it runs its forward alone. The running
+statistics are a functional output: ``merge_bn_stats`` grafts them onto an
+optimizer's output, and ``bn_buffer_mask`` marks the leaves that weight
+decay may touch.
+
+A training forward keeps its activations for the backward pass, in both
+backbones (``nn/swin.py`` follows this rule). The JAX package wraps each
+block in ``jax.checkpoint``; the port does not rematerialize: its forward
+is deterministic, so a recompute would give the backward the same bits it
+keeps, and the fine-tune's unfrozen step (256 images of 224^2) peaks at
+22.8 GB on ResNet-50, within one 80 GB card (PERF.md).
 
 Data-parallel training (``resnet_apply_train(group=)``, one process per
 card): every BN takes the statistics of the whole group's batch, in torch
@@ -73,10 +77,8 @@ the global mean, a second the global ``sum(w * (x - mean)^2)``: the two
 passes of the one-card formula over the union of the ranks' images. The
 all-reduce is ``torch.distributed.nn.functional.all_reduce``, whose
 backward all-reduces the gradient, so each rank's backward is its share
-of the gradient of the global-statistics BN. The rematerialized blocks
-re-run both all-reduces in the backward pass (every rank recomputes the
-same blocks in the same order), and the running statistics, a functional
-output of the forward, move once, by the global statistics.
+of the gradient of the global-statistics BN. The running statistics move
+by the global statistics.
 """
 import math
 from typing import Any, Dict
@@ -84,7 +86,6 @@ from typing import Any, Dict
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from pd_fusion_torch.ops import weighted_bn
 
@@ -396,23 +397,18 @@ def _block(x, p, stride, basic, bn):
     return out, new_p
 
 
-def _forward(params, x, arch, bn, remat):
-    """NCHW x -> (embeddings, params after every ``bn``). With ``remat`` and
-    autograd on, each block is recomputed in the backward pass."""
+def _forward(params, x, arch, bn):
+    """NCHW x -> (embeddings, params after every ``bn``)."""
     basic = _CONFIGS[arch]["block"] == "basic"
     new_params = dict(params)
     out, new_params["bn1"] = bn(_conv(x, params["conv1"]["w"], stride=2, padding=3), params["bn1"],
                                 relu=True)
     out = _pool(out)
-    remat = remat and torch.is_grad_enabled()
     for li in range(4):
         blocks = []
         for bi, p in enumerate(params[f"layer{li + 1}"]):
             stride = 2 if (li > 0 and bi == 0) else 1
-            if remat:
-                out, nb = checkpoint(_block, out, p, stride, basic, bn, use_reentrant=False)
-            else:
-                out, nb = _block(out, p, stride, basic, bn)
+            out, nb = _block(out, p, stride, basic, bn)
             blocks.append(nb)
         new_params[f"layer{li + 1}"] = blocks
     return torch.mean(out, dim=(2, 3)), new_params
@@ -422,14 +418,14 @@ def resnet_apply(params, x, arch: str = "resnet18", train: bool = False):
     """x [N, H, W, 3] -> embeddings [N, emb_dim] (global-average-pooled;
     no classifier, as torchvision's with ``fc = Identity``). Inference BN
     from the running statistics; ``train=True``: batch statistics, the
-    running statistics untouched, blocks rematerialized."""
-    return _forward(params, _nchw(x), arch, _bn_batch if train else _bn_infer, remat=train)[0]
+    running statistics untouched."""
+    return _forward(params, _nchw(x), arch, _bn_batch if train else _bn_infer)[0]
 
 
 def resnet_apply_train(params, x, arch: str = "resnet18", momentum: float = 0.1,
                        sample_weight=None, group=None):
     """Train-mode forward -> (embeddings, params with the running statistics
-    moved by ``weighted_bn.bn_train``); blocks rematerialized.
+    moved by ``weighted_bn.bn_train``).
     ``sample_weight`` ([N] 0/1) restricts every BN's statistics to the
     weighted images, so a batch padded to a fixed shape has the unpadded
     batch's statistics. With
@@ -440,7 +436,7 @@ def resnet_apply_train(params, x, arch: str = "resnet18", momentum: float = 0.1,
             return _bn_train_group(y, p, momentum, sample_weight, group, identity, relu)
         return weighted_bn.bn_train(y, p, momentum, BN_EPS, sample_weight, identity, relu)
 
-    return _forward(params, _nchw(x), arch, bn, remat=True)
+    return _forward(params, _nchw(x), arch, bn)
 
 
 def _map2(a, b, fn, key=None):

@@ -49,8 +49,9 @@ Where the port departs from the official module, and why:
 - The resolution of each stage is read from the input, not fixed at
   construction; a stage's map must split into whole windows. The bias
   tables' size is fixed at ``init_swin`` by ``image_size``.
-- Blocks are not rematerialized: at 256 images of 224^2 the step keeps
-  about 30 GB of activations, within one card.
+- Blocks keep their activations for the backward pass, as the ResNet's
+  (the rule and its reason: ``nn/resnet.py``): at 256 images of 224^2 the
+  step keeps about 30 GB of activations, within one card.
 
 Host spans and counters (``utils/profiling.py``): each block's partition,
 attention and reverse, its shift included, run in span

@@ -61,7 +61,7 @@ def bn_calls(arch: str = "resnet50", size: int = 224, n: int = 256) -> Dict[Call
     params = R.params_to(R.init_resnet(torch.Generator().manual_seed(0), arch), device="meta")
     x = torch.empty(n, size, size, 3, device="meta")
     with torch.no_grad():
-        R._forward(params, R._nchw(x), arch, record, remat=False)
+        R._forward(params, R._nchw(x), arch, record)
     return dict(calls)
 
 

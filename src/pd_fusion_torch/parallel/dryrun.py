@@ -118,11 +118,19 @@ def _plain_kernels():
 class _Legs:
     """Times and checks the legs: ``world1`` runs on rank 0 alone,
     ``sharded`` on every rank; ``check`` compares on rank 0 and raises on
-    every rank when the broadcast difference is over the tolerance."""
+    every rank when the broadcast difference is over the tolerance. After
+    each leg a rank hands its cached device blocks back: ranks that share
+    one card (two over gloo) then find it free for the next leg, whose
+    full-width float64 step keeps every activation for its backward."""
 
     def __init__(self, dev):
         self.dev = dev
         self.diffs, self.walls = {}, {}
+
+    def _done(self):
+        _sync(self.dev)
+        if self.dev.type == "cuda":
+            torch.cuda.empty_cache()
 
     def world1(self, name, fn):
         out = None
@@ -130,7 +138,7 @@ class _Legs:
             _sync(self.dev)
             t0 = time.perf_counter()
             out = fn()
-            _sync(self.dev)
+            self._done()
             self.walls[f"{name}_world1_s"] = time.perf_counter() - t0
         distributed.barrier()
         return out
@@ -140,7 +148,7 @@ class _Legs:
         _sync(self.dev)
         t0 = time.perf_counter()
         out = fn()
-        _sync(self.dev)
+        self._done()
         distributed.barrier()
         self.walls[f"{name}_sharded_s"] = time.perf_counter() - t0
         return out

@@ -205,6 +205,18 @@ def test_counters_count_calls_while_tracing():
     profiling.reset()
 
 
+def _step_args(arch, device, inputs):
+    """(backbone, head, Adam state, batch, hyper) of one ``ft_step`` from the
+    seeded ``arch`` and a gated head on ``device``."""
+    backbone, dim, _ = ft.load_backbone(arch, seed=0)
+    head = mil_init(torch.Generator().manual_seed(1), dim, fc.HIDDEN, fc.ATTN, True)
+    bp, hp = R.params_to(backbone, device=device), R.params_to(head, device=device)
+    opt = {"backbone": ft.ft_optim.init_group(ft.trainable_leaves(bp)),
+           "head": ft.ft_optim.init_group(ft.trainable_leaves(hp))}
+    batch = {k: torch.as_tensor(v, device=device) for k, v in inputs.items()}
+    return bp, hp, opt, batch, dict(fc.hyper(device), arch=arch)
+
+
 def _step_calls(monkeypatch, arch, gate):
     """One tiny ``ft_step`` on the CPU -> (plain forwards, plain backwards,
     the ``backbone:bn_plain`` counter)."""
@@ -214,12 +226,8 @@ def _step_calls(monkeypatch, arch, gate):
             calls[_name] += 1
             return _fn(*a, **k)
         monkeypatch.setattr(wbn, f"{name}_plain", counted)
-    backbone, dim, _ = ft.load_backbone(arch, seed=0)
-    head = mil_init(torch.Generator().manual_seed(1), dim, fc.HIDDEN, fc.ATTN, True)
-    opt = {"backbone": ft.ft_optim.init_group(ft.trainable_leaves(backbone)),
-           "head": ft.ft_optim.init_group(ft.trainable_leaves(head))}
-    batch = {k: torch.as_tensor(v) for k, v in fc.step_inputs(2, 2, 32, seed=3).items()}
-    hyper = dict(fc.hyper("cpu"), arch=arch, input_size=32)
+    backbone, head, opt, batch, hyper = _step_args(arch, "cpu", fc.step_inputs(2, 2, 32, seed=3))
+    hyper["input_size"] = 32
     profiling.reset()
     with profiling.tracing():
         new_b, _, loss = ft.ft_step(backbone, head, opt, batch, gate, hyper)
@@ -231,15 +239,13 @@ def _step_calls(monkeypatch, arch, gate):
     return calls["forward"], calls["backward"], counter
 
 
-@pytest.mark.parametrize("arch,forward,recomputed,backward", [
-    ("resnet50", 53, 52, 53), ("resnet18", 20, 19, 20)])
-def test_an_unfrozen_step_counts_its_bns(monkeypatch, arch, forward, recomputed, backward):
-    """An unfrozen ``ft_step``: every BN forward, every block's again in the
-    rematerialized backward (all but the stem's), and every BN's backward,
-    each one call of the fused BN."""
+@pytest.mark.parametrize("arch,forward,backward", [("resnet50", 53, 53), ("resnet18", 20, 20)])
+def test_an_unfrozen_step_counts_its_bns(monkeypatch, arch, forward, backward):
+    """An unfrozen ``ft_step``: every BN's forward once and its backward
+    once, each one call of the fused BN."""
     f, b, counter = _step_calls(monkeypatch, arch, 1.0)
-    assert (f, b) == (forward + recomputed, backward)
-    assert counter == forward + recomputed + backward
+    assert (f, b) == (forward, backward)
+    assert counter == forward + backward
 
 
 def test_a_frozen_step_runs_the_forward_alone(monkeypatch):
@@ -396,8 +402,7 @@ def test_the_kernels_hold_no_atomic(cuda):
 def test_two_unfrozen_resnet50_steps_from_one_state_are_equal(cuda):
     """The unfrozen ResNet-50 step at the config's width (B=4 bags of 64
     slices 160^2 -> 224^2), twice from one state: equal bit for bit, each
-    through the kernels alone (158 calls: 53 forward, 52 recomputed, 53
-    backward)."""
+    through the kernels alone (106 calls: 53 forward, 53 backward)."""
     from pd_fusion_torch.utils import determinism_checks as dc
 
     prog = next(p for p in dc.ft_step_programs(cuda, small=False) if p.name == "ft_step_unfrozen")
@@ -409,4 +414,32 @@ def test_two_unfrozen_resnet50_steps_from_one_state_are_equal(cuda):
     profiling.reset()
     assert all(eq for eq, _ in twice.values()), [k for k, (eq, _) in twice.items() if not eq]
     assert wbn.launch_counts["plain"] == before["plain"]
-    assert counters.get("backbone:bn_kernel") == 2 * 158 and "backbone:bn_plain" not in counters
+    assert counters.get("backbone:bn_kernel") == 2 * 106 and "backbone:bn_plain" not in counters
+
+
+# the peak device memory of one unfrozen full-width step (the config's B=4
+# bags of L=64 slices 160^2 -> 224^2, 256 images) with every activation kept
+# for the backward pass: 22.84 and 6.74 GB on an H100 80GB HBM3, plus a tenth
+PEAK_GB = {"resnet50": 25.0, "resnet18": 7.4}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", sorted(PEAK_GB))
+def test_an_unfrozen_full_width_step_peaks_under_its_bound(cuda, arch):
+    """The memory a training forward keeps for the backward pass: one
+    unfrozen ``ft_step`` at the config's width peaks under its bound (and
+    ResNet-50's under 40 GB, half the card), through the kernels alone (3
+    launches a call, 53 or 20 BNs forward and backward)."""
+    from pd_fusion_torch.utils.determinism_checks import FT_BAGS
+
+    bp, hp, opt, batch, hyper = _step_args(arch, cuda,
+                                           fc.step_inputs(*FT_BAGS, seed=3, ragged=False))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    wbn.reset_launch_counts()
+    _, _, loss = ft.ft_step(bp, hp, opt, batch, 1.0, hyper)
+    assert np.isfinite(float(loss))
+    peak = torch.cuda.max_memory_allocated(cuda) / 1e9
+    bns = 53 if arch == "resnet50" else 20
+    assert wbn.launch_counts == {"kernel": 3 * 2 * bns, "plain": 0}
+    assert peak < min(PEAK_GB[arch], 40.0), f"{arch}: peak {peak:.3f} GB"

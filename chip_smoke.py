@@ -41,6 +41,20 @@ Phases; any failure exits non-zero before the final line:
    version and ``F.batch_norm`` between CUDA events) and summed over a
    step's BNs; K2's launches are counted on every path below that runs
    the ResNet train step (the kernels line's ``launches_by_path``);
+3(c). K3, numpy's normal draw on the card (``ops/normal_draw_checks.py``,
+   the checks the ``cuda`` tests run): the fine-tune's noise ``[4, 64,
+   160, 160]`` at std 0.01 on ``K3_SEEDS`` seeds (the ``cuda`` tests draw
+   32) and every size of ``SHAPES`` at std 0.01 and 1.0 against
+   ``rng.normal(...).astype(float32)`` bit for bit, the generator's state
+   and next draws after each (a buffered 32-bit half too); the outputs
+   consumed against the plain version's; a budget that runs short; the
+   fine-tune's ``_epoch_steps`` and ``_predict_passes`` on the card
+   against the CPU's; then K3 between CUDA events and the whole call on
+   the host's clock, beside its bound (the values written, the PCG64
+   steps), the plain version and numpy's own draw on the host; K3's
+   launches are counted by path (the kernels line): the checks, the
+   timing, phase 22's CV and single split and phase 39(b)'s single split,
+   each of the last three with K3 launched and its plain version not;
 4. the ds001907 MIL-attention CV slice at full width through the port's
    CLI (``python -m pd_fusion_torch.cli run --config <abs path>``) on
    seeded synthetic bags (48 subjects x 2 sessions, 48 slices x 2048):
@@ -326,6 +340,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # float32 outside the tensor cores, H100 SXM data sheet
+H100_INT32_OPS = 64 * 132 * 1.98e9  # 32-bit integer operations: 64 a clock a SM, H100 SXM
 MIL_CONFIG = ROOT / "configs" / "openneuro_ds001907_resnet2d_mil.yaml"
 QUICKSTART = ROOT / "configs" / "quickstart.yaml"
 EVAL_CONFIG = ROOT / "configs" / "eval_missingness.yaml"
@@ -528,6 +543,83 @@ def check_k2(torch, k2_paths):
               f"CUDA events): kernels {step['kernel']:.3f} ms, bytes bound {step['bound']:.3f} ms "
               f"({step['bound'] / step['kernel']:.4f} of it), plain {step['plain']:.3f} ms, "
               f"F.batch_norm (unweighted; the port never calls it) {step['library']:.3f} ms")
+    return rec
+
+
+K3_INT_OPS = 20  # 32-bit integer operations an output position needs at least (below)
+
+
+def k3_bound_ms(n: int, positions: int) -> dict:
+    """What ``n`` values drawn from ``positions`` outputs need at least on
+    an H100 SXM, in ms: ``bytes``, the values written once; ``compute``,
+    each position's PCG64 step and output (10 32-bit limb products of the
+    128-bit LCG, 4 adds with carry, 2 xors and 4 shifts of the rotate) on
+    the integer pipes; ``bound``, the larger. ``design`` is the reference
+    design's traffic (each position's raw 64-bit word written and read
+    once, then the values), which K3 does not make: a figure apart."""
+    out = {"bytes": 4 * n / H100_BYTES_PER_S * 1e3,
+           "compute": K3_INT_OPS * positions / H100_INT32_OPS * 1e3,
+           "design": (2 * 8 * positions + 4 * n) / H100_BYTES_PER_S * 1e3}
+    out["bound"] = max(out["bytes"], out["compute"])
+    out["bound_by"] = "bytes" if out["bytes"] >= out["compute"] else "compute"
+    return out
+
+
+K3_SEEDS = 4  # full-size draws here; the cuda tests draw 32
+
+
+def check_k3(torch, np, k3_paths):
+    """Phase 3(c): K3 (``csrc/normal_draw.cu``) against numpy's own draw,
+    bit for bit, then timed; its launches by the checks and by the timing
+    go to ``k3_paths``. -> record for the kernels line."""
+    from pd_fusion_torch.ops import normal_draw as nd
+    from pd_fusion_torch.ops import normal_draw_checks as ndc
+
+    nd.reset_launch_counts()
+    seeds = [3_000_000_000 + k for k in range(K3_SEEDS)]
+    errs = [ndc.check_draw("cuda", seed, ndc.NOISE_SHAPE, 0.01) for seed in seeds]
+    for shape in ndc.SHAPES:
+        for std in ndc.STDS:
+            errs.append(ndc.check_draw("cuda", seeds[0], shape, std))
+            errs.append(ndc.check_draw("cuda", seeds[1], shape, std, buffered=True))
+    consumed = [ndc.check_consumed("cuda", seed, ndc.NOISE_SHAPE, 0.01) for seed in seeds[:2]]
+    ndc.check_short_budget("cuda", seeds[0])
+    model_draws = ndc.check_model_path("cuda", seeds[0])
+    k3_paths["checks"] = nd.launch_counts["kernel"]
+    if nd.launch_counts["plain"] != 2:  # check_consumed's two plain draws
+        raise RuntimeError(f"K3's checks: launches {nd.launch_counts}")
+    n = math.prod(ndc.NOISE_SHAPE)
+    print(f"K3: {len(seeds)} seeds at {ndc.NOISE_SHAPE} and {len(ndc.SHAPES)} sizes x std "
+          f"{ndc.STDS} equal to numpy bit for bit (max abs err {max(errs):.3e}), the generator's "
+          f"next draws too; outputs consumed {consumed} (the plain version's), "
+          f"{consumed[0] / n:.5f} a value; a short budget drawn again; the fine-tune's "
+          f"preparation equal to the CPU's ({model_draws} draws); {k3_paths['checks']} launches")
+    warm_clocks(torch)
+    nd.reset_launch_counts()
+    t = ndc.time_kernel("cuda")
+    k3_paths["timing"] = nd.launch_counts["kernel"]
+    rng = ndc.generator(5)
+    host_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        rng.normal(0.0, 0.01, ndc.NOISE_SHAPE).astype(np.float32)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    st = rng.bit_generator.state["state"]
+    t0 = time.perf_counter()
+    nd.draw_plain(st["state"], st["inc"], n, 0.0, 0.01, nd.first_budget(n))
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    b = k3_bound_ms(n, consumed[0])
+    rec = {"kernel_ms": t["kernel_ms"], "call_ms": t["call_ms"], "plain_ms": plain_ms,
+           "numpy_ms": statistics.median(host_ms), "bound": b, "max_abs_err": max(errs),
+           "consumed_a_value": consumed[0] / n}
+    print(f"K3 at {ndc.NOISE_SHAPE} (device, CUDA events, median of 20): {t['kernel_ms']:.4f} ms "
+          f"({nd.LAUNCHES} launches); bound {b['bound']:.4f} ms ({b['bound_by']}: the values "
+          f"written {b['bytes']:.4f} ms at 3.35 TB/s, the PCG64 steps {b['compute']:.4f} ms at "
+          f"{K3_INT_OPS} integer operations a position), {b['bound'] / t['kernel_ms']:.4f} of "
+          f"it; the reference design's traffic (raws written and read, values written) "
+          f"{b['design']:.4f} ms; the whole call (read-back and the generator's jump) "
+          f"{t['call_ms']:.4f} ms; plain version (numpy, host) {plain_ms:.1f} ms; numpy's "
+          f"rng.normal + astype (host, median of 5) {rec['numpy_ms']:.1f} ms")
     return rec
 
 
@@ -1813,13 +1905,16 @@ def ft_step_program(torch, ap, ft, fc, ec, TR, gate, B, L, hw):
     return rec
 
 
-def run_ft_path(torch, np, yaml, ap, cli, tmp: Path, manifest: Path, k2_paths):
+def run_ft_path(torch, np, yaml, ap, cli, tmp: Path, manifest: Path, k2_paths, k3_paths):
     """Phases 20-22: one step card vs CPU; the full-width step profiled,
     frozen and not; the CLI CV at full width and reduced depth, then the
     single split and the artifact's reload. K2's launches on each path go
-    to ``k2_paths``. -> (paths, programs, K1 launches of the CV)."""
+    to ``k2_paths``, K3's on the CV and the single split (the paths that
+    draw the noise) to ``k3_paths``. -> (paths, programs, K1 launches of
+    the CV)."""
     import pandas as pd
 
+    from pd_fusion_torch.ops import normal_draw as nd
     from pd_fusion_torch.ops import weighted_bn as wbn
 
     from pd_fusion_torch.experiments import run_experiment
@@ -1895,10 +1990,11 @@ def run_ft_path(torch, np, yaml, ap, cli, tmp: Path, manifest: Path, k2_paths):
     ft.SLICE_CACHE.clear()
     ap.reset_launch_counts()
     wbn.reset_launch_counts()
+    nd.reset_launch_counts()
     t0 = time.perf_counter()
     agg = cli.main(["run", "--config", str(config), "--output-dir", str(out)])
     cv_wall = time.perf_counter() - t0
-    k1, k2 = dict(ap.launch_counts), dict(wbn.launch_counts)
+    k1, k2, k3 = dict(ap.launch_counts), dict(wbn.launch_counts), dict(nd.launch_counts)
     names = ["results_aggregated.yaml", "fold_assignments.csv", "summary_table.csv"]
     names += [f"results_fold_{i}.yaml" for i in range(1, FT_FOLDS + 1)]
     names += [f"preds_fold_{i}_full_observation.csv" for i in range(1, FT_FOLDS + 1)]
@@ -1911,13 +2007,16 @@ def run_ft_path(torch, np, yaml, ap, cli, tmp: Path, manifest: Path, k2_paths):
     if k2["kernel"] <= 0 or k2["plain"] != 0:
         raise RuntimeError(f"the fine-tune CV: K2 launches {k2}")
     k2_paths["mil_ft_cv"] = k2["kernel"]
+    if k3["kernel"] <= 0 or k3["plain"] != 0:
+        raise RuntimeError(f"the fine-tune CV: K3 launches {k3}")
+    k3_paths["mil_ft_cv"] = k3["kernel"]
     auc = on_disk["full_observation"]["roc_auc"]["mean"]
     if not math.isfinite(auc):
         raise RuntimeError(f"the fine-tune CV: ROC-AUC {auc}")
     print(f"fine-tune CV ({FT_FOLDS}-fold, {2 * FT_SUBJECTS} volumes, python -m pd_fusion_torch.cli "
           f"run --config <copy of {FT_CONFIG.name}>): wall {cv_wall:.3f} s, K1 launches "
-          f"{k1['kernel']}, plain 0, K2 launches {k2['kernel']}, plain 0, full_observation "
-          f"ROC-AUC {auc:.4f} +- "
+          f"{k1['kernel']}, plain 0, K2 launches {k2['kernel']}, plain 0, K3 launches "
+          f"{k3['kernel']}, plain 0, full_observation ROC-AUC {auc:.4f} +- "
           f"{on_disk['full_observation']['roc_auc']['std']:.4f} (no band: random backbone, "
           f"{FT_DEPTH['epochs']} epochs)")
     for scen, m in on_disk.items():
@@ -1939,6 +2038,7 @@ def run_ft_path(torch, np, yaml, ap, cli, tmp: Path, manifest: Path, k2_paths):
     run_out = tmp / "ft_single"
     ap.reset_launch_counts()
     wbn.reset_launch_counts()
+    nd.reset_launch_counts()
     t0 = time.perf_counter()
     run_experiment.train_pipeline = keep_model
     try:
@@ -1949,12 +2049,15 @@ def run_ft_path(torch, np, yaml, ap, cli, tmp: Path, manifest: Path, k2_paths):
         run_experiment.train_pipeline = train_pipeline
     train_wall = time.perf_counter() - t0
     train_k1, train_k2 = dict(ap.launch_counts), dict(wbn.launch_counts)
+    train_k3 = dict(nd.launch_counts)
     require_files(run_out, ["results.yaml", "model.pt", "preprocess.pkl"], "the fine-tune run")
     if len(results) != 7 or train_k1["plain"] != 0 or train_k1["kernel"] <= 0 \
-            or train_k2["plain"] != 0 or train_k2["kernel"] <= 0:
+            or train_k2["plain"] != 0 or train_k2["kernel"] <= 0 \
+            or train_k3["plain"] != 0 or train_k3["kernel"] <= 0:
         raise RuntimeError(f"the fine-tune run: {len(results)} scenarios, K1 {train_k1}, "
-                           f"K2 {train_k2}")
+                           f"K2 {train_k2}, K3 {train_k3}")
     k2_paths["mil_ft_single"] = train_k2["kernel"]
+    k3_paths["mil_ft_single"] = train_k3["kernel"]
     model = trained[0]
     base = getattr(model, "base_model", model)
     base.save(tmp / "ft_artifact.pt")
@@ -1972,7 +2075,8 @@ def run_ft_path(torch, np, yaml, ap, cli, tmp: Path, manifest: Path, k2_paths):
         raise RuntimeError(f"the reloaded fine-tune model predicts {want}")
     print(f"fine-tune single split (run --config <the copy without cv_folds>, augmentation "
           f"drawn from seed {FT_DRAWS_SEED}): wall "
-          f"{train_wall:.3f} s, K1 launches {train_k1['kernel']}, K2 {train_k2['kernel']}; "
+          f"{train_wall:.3f} s, K1 launches {train_k1['kernel']}, K2 {train_k2['kernel']}, "
+          f"K3 {train_k3['kernel']}; "
           f"model.pt "
           f"({type(model).__name__}) and the mil_attention_ft artifact reloaded with load_model "
           f"predict {FT_PREDICT_BAGS} bags as the trained model (tta_inference 1): max abs err "
@@ -3738,23 +3842,24 @@ def ft_single_rerun_spec(yaml, np, tmp: Path, det: Path) -> dict:
             "with_model": True, "seeded_ft_draws": True,
             "predict_bags": pd.read_csv(tmp / "manifest_ft.csv")["t1wbrain_path"].tolist()[
                 :FT_PREDICT_BAGS],
-            "expect_k1": True, "expect_k2": True, "first": "phase 22",
+            "expect_k1": True, "expect_k2": True, "expect_k3": True, "first": "phase 22",
             "what": "python -m pd_fusion_torch.cli run --config <phase 22's single split>"}
 
 
 def determinism_child(spec_path) -> int:
     """Phase 39(b)'s child (``chip_smoke.py --determinism-child SPEC``): each
     of ``spec["runs"]`` through its module's ``main(argv)`` in this fresh
-    process, K1's and K2's counts zeroed before each (a run with
+    process, K1's, K2's and K3's counts zeroed before each (a run with
     ``seeded_ft_draws`` under ``seeded_ft_draws()``, then its ``model.pt``
-    on ``predict_bags``, written to ``predictions.npz``); its wall and K1's
-    counts and K2's written to ``spec["out"]``."""
+    on ``predict_bags``, written to ``predictions.npz``); its wall and the
+    three kernels' counts written to ``spec["out"]``."""
     import importlib
 
     import numpy as np
     import torch
 
     from pd_fusion_torch.ops import attention_pool as ap
+    from pd_fusion_torch.ops import normal_draw as nd
     from pd_fusion_torch.ops import weighted_bn as wbn
     from pd_fusion_torch.utils.device import get_device
 
@@ -3765,6 +3870,7 @@ def determinism_child(spec_path) -> int:
         main = importlib.import_module(run["module"]).main
         ap.reset_launch_counts()
         wbn.reset_launch_counts()
+        nd.reset_launch_counts()
         t0 = time.perf_counter()
         with seeded_ft_draws() if run.get("seeded_ft_draws") else contextlib.nullcontext():
             main(run["argv"])
@@ -3775,7 +3881,7 @@ def determinism_child(spec_path) -> int:
         if torch.cuda.is_available():
             torch.cuda.synchronize()
         rec[run["name"]] = {"wall_s": time.perf_counter() - t0, "k1": dict(ap.launch_counts),
-                            "k2": dict(wbn.launch_counts)}
+                            "k2": dict(wbn.launch_counts), "k3": dict(nd.launch_counts)}
     Path(spec["out"]).write_text(json.dumps(rec))
     return 0
 
@@ -3840,8 +3946,9 @@ def determinism_rerun(np, yaml, tmp: Path, runs, child=None):
     one fresh child (``child``, from ``start_determinism_child``, started
     here if not given), each one's artifacts in ``out`` held bit for bit
     against ``ref`` (the first run's, read by ``dir_artifacts``); on the
-    card K1 must launch where ``expect_k1`` and K2 where ``expect_k2`` says,
-    neither's plain version ever (each record holds its K2 launches).
+    card K1 must launch where ``expect_k1``, K2 where ``expect_k2`` and K3
+    where ``expect_k3`` says, no plain version ever (each record holds its
+    K2 and K3 launches).
     Raises, after printing every run's line, when one differs. -> (records,
     {name: K1 launches})."""
     from pd_fusion_torch.utils import determinism_checks as dc
@@ -3861,13 +3968,17 @@ def determinism_rerun(np, yaml, tmp: Path, runs, child=None):
         expect_k2 = r.get("expect_k2", False)
         if DEV == "cuda" and (k2["plain"] != 0 or (k2["kernel"] > 0) != expect_k2):
             raise RuntimeError(f"phase 39(b) {r['name']}: K2 launches {k2}")
+        k3 = child[r["name"]]["k3"]
+        if DEV == "cuda" and (k3["plain"] != 0 or (k3["kernel"] > 0) != r.get("expect_k3", False)):
+            raise RuntimeError(f"phase 39(b) {r['name']}: K3 launches {k3}")
         rows.append({"name": r["name"], "source": f"chip_smoke.py --determinism-child: {r['what']}",
                      "width": f"a fresh process against {r['first']}",
                      "equal": all(eq for eq, _ in twice.values()),
                      "gap": max((g for _, g in twice.values()), default=0.0),
                      "unequal_outputs": [k for k, (eq, _) in twice.items() if not eq],
                      "flagged": "not measured", "deterministic": True, "note": "",
-                     "two_runs_s": child[r["name"]]["wall_s"], "k2_launches": k2["kernel"]})
+                     "two_runs_s": child[r["name"]]["wall_s"], "k2_launches": k2["kernel"],
+                     "k3_launches": k3["kernel"]})
         print_determinism(rows[-1])
     print(f"phase 39(b) child (beside 39(a)): {wall:.3f} s with the process's start; runs "
           f"{json.dumps({k: round(v['wall_s'], 3) for k, v in child.items()})} s")
@@ -3901,6 +4012,7 @@ def main() -> int:
     from pd_fusion_torch import cli
     from pd_fusion_torch.ops import attention_pool as ap
     from pd_fusion_torch.ops import attention_pool_checks as checks
+    from pd_fusion_torch.ops import normal_draw as nd
     from pd_fusion_torch.ops import weighted_bn as wbn
     from pd_fusion_torch.utils.device import get_device
 
@@ -3917,17 +4029,19 @@ def main() -> int:
 
     sources = [ap.SOURCE] + ([args.compare_with.resolve()] if args.compare_with else [])
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(sources) + 2) as pool:
+    with ThreadPoolExecutor(len(sources) + 3) as pool:
         host_lib = pool.submit(native.build_library)
         k2_lib = pool.submit(ap.build_library, wbn.SOURCE)
+        k3_lib = pool.submit(ap.build_library, nd.SOURCE)
         libs = list(pool.map(ap.build_library, sources))
-        host_lib, k2_lib = host_lib.result(), k2_lib.result()
-    print(f"build: {', '.join(map(str, libs + [k2_lib, host_lib]))} in "
+        host_lib, k2_lib, k3_lib = host_lib.result(), k2_lib.result(), k3_lib.result()
+    print(f"build: {', '.join(map(str, libs + [k2_lib, k3_lib, host_lib]))} in "
           f"{time.perf_counter() - t0:.2f} s")
-    for src, lib in zip(sources + [wbn.SOURCE], libs + [k2_lib]):
+    for src, lib in zip(sources + [wbn.SOURCE, nd.SOURCE], libs + [k2_lib, k3_lib]):
         log = lib.with_suffix(".log").read_text().strip()
         print(f"-Xptxas=-v for {src}:\n{log}")
     check_spills(libs[0].with_suffix(".log").read_text())
+    check_spills(k3_lib.with_suffix(".log").read_text())
 
     # phase 3: kernel against plain on the card, then timed
     max_err = 0.0
@@ -3946,6 +4060,11 @@ def main() -> int:
     # train steps, then timed; its launches are counted by path from here on
     k2_paths = {}
     k2 = check_k2(torch, k2_paths)
+
+    # phase 3(c): K3 against numpy's draw, then timed; its launches are
+    # counted by path from here on
+    k3_paths = {}
+    k3 = check_k3(torch, np, k3_paths)
 
     warm_clocks(torch)
     floor_ms = launch_floor_ms(torch)
@@ -4104,7 +4223,7 @@ def main() -> int:
         embed_paths, embed_programs, built_launches, manifest = run_embed_path(
             torch, np, yaml, ap, cli, tmp)
         ft_paths, ft_programs, ft_launches = run_ft_path(torch, np, yaml, ap, cli, tmp, manifest,
-                                                         k2_paths)
+                                                         k2_paths, k3_paths)
         # phases 23-27: the ds001907 volume-feature path on the same volumes;
         # a dev dataset
         vol_paths, vol_programs, vol_launches = run_volume_path(torch, np, yaml, ap, cli, tmp,
@@ -4194,8 +4313,9 @@ def main() -> int:
             raise
         k2_paths["determinism_programs"] = k2_det["kernel"]
         child_rows, child_k1 = determinism_rerun(np, yaml, tmp, reruns, child)
-        k2_paths["determinism_child_mil_ft_single"] = next(
-            r["k2_launches"] for r in child_rows if r["name"] == "mil_ft_single")
+        ft_row = next(r for r in child_rows if r["name"] == "mil_ft_single")
+        k2_paths["determinism_child_mil_ft_single"] = ft_row["k2_launches"]
+        k3_paths["determinism_child_mil_ft_single"] = ft_row["k3_launches"]
         turns = determinism_turns(torch, kept)
         del kept
         paths.append({"name": "determinism", "programs": det_rows, "fresh_process": child_rows,
@@ -4260,6 +4380,25 @@ def main() -> int:
         "plain_ms_resnet18": k2["steps"]["resnet18"]["plain"],
         "bound_ms_resnet18": k2["steps"]["resnet18"]["bound"],
         "library_ms_resnet18": k2["steps"]["resnet18"]["library"],
+    }, {
+        "name": "normal_draw",
+        "route": "cuda",
+        "source": "src/pd_fusion_torch/csrc/normal_draw.cu",
+        "replaces": None,  # numpy's rng.normal on the host, bit for bit
+        "launches": sum(k3_paths.values()),
+        "launches_by_path": k3_paths,
+        "max_abs_err": k3["max_abs_err"],
+        "ms": k3["kernel_ms"],
+        "plain_ms": k3["plain_ms"],
+        "bound_ms": k3["bound"]["bound"],
+        "bound_by": k3["bound"]["bound_by"],
+        "library_ms": k3["numpy_ms"],  # numpy's draw on the host, the yardstick
+        "shape": "the fine-tune's noise, 4 x 64 x 160^2 float32 at std 0.01",
+        "call_ms": k3["call_ms"],
+        "bytes_bound_ms": k3["bound"]["bytes"],
+        "compute_bound_ms": k3["bound"]["compute"],
+        "design_traffic_ms": k3["bound"]["design"],
+        "consumed_a_value": k3["consumed_a_value"],
     }]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

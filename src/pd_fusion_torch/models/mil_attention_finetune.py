@@ -36,24 +36,31 @@ small: on an H100 at B=4, L=64 it takes 0.62 s against 0.61 s of device
 work for ResNet-50, and 0.12 s against 0.20 s for ResNet-18.
 
 Preparation one item ahead: a step's (a TTA pass's) host work before its
-copies, the slice loads, the padded batch and the augmentation draws
-(0.15-0.17 s of numpy a step at B=4, L=64, 160^2), is made on one worker
-thread while the caller's thread copies and dispatches the item before
-(``_prepared_ahead``: span ``trainer:prep_wait``, the caller's wait for an
-item; counter ``trainer:prep_ready``, the items that were ready). The
-worker alone draws from the call's generator, in the order below, and
-only for items that are taken; a pipeline lasts one epoch of ``train``
-(the epoch's checkpoint, validation and early stop run with no worker) or
-one ``predict_proba`` call. The copies stay on the caller's thread, in
-their order, and each item is made of fresh arrays.
+copies, the slice loads, the padded batch and the augmentation draws, is
+made on one worker thread while the caller's thread copies and dispatches
+the item before (``_prepared_ahead``: span ``trainer:prep_wait``, the
+caller's wait for an item; counter ``trainer:prep_ready``, the items that
+were ready). The worker alone draws from the call's generator, in the
+order below, and only for items that are taken; a pipeline lasts one
+epoch of ``train`` (the epoch's checkpoint, validation and early stop run
+with no worker) or one ``predict_proba`` call. The copies stay on the
+caller's thread, in their order, and each item is made of fresh arrays.
 
 Random draws, in the JAX package's order from a numpy ``Generator`` (an
 unseeded ``np.random.default_rng()`` per ``train`` and per
 ``predict_proba`` call, as there; ``make_rng`` replaces it): per epoch the
 permutation or the balanced ``rng.choice`` pairs, then per batch the
 angle, translation, intensity scale and shift and the noise over the
-padded ``[bs, L_i, h, w]``. The head's dropout keeps come from a torch
-generator split off the seed chain, or from ``train(dropout_keep_fn=)``.
+padded ``[bs, L_i, h, w]``. The noise is numpy's ``rng.normal(0,
+noise_std, shape)`` as float32, bit for bit, drawn on the model's device
+by ``ops/normal_draw.py`` (kernel K3 on the card, 0.3 ms with its
+read-back where numpy took 0.15-0.19 s a step or pass at B=4, L=64, 160^2;
+numpy's own draw on the CPU), which then moves the generator past what it
+consumed: so every later draw is numpy's too. On the card the noise is a device tensor that
+the caller takes as it is (``normal_draw.hand_over``), with no copy; with
+``noise_std`` 0 or augmentation off it is zeros made on the device, and
+nothing is drawn. The head's dropout keeps come from a torch generator
+split off the seed chain, or from ``train(dropout_keep_fn=)``.
 
 Data parallelism (``ft_step(group=)``, the JAX dry run's MIL-FT leg: bags
 sharded over every device, params replicated): each rank steps its own
@@ -96,6 +103,7 @@ from pd_fusion_torch.nn.resnet import (
 )
 from pd_fusion_torch.nn.resnet import load_backbone as load_resnet
 from pd_fusion_torch.nn.swin import swin_apply, swin_apply_train
+from pd_fusion_torch.ops import normal_draw
 from pd_fusion_torch.ops.image import affine2d_subjects, slices_to_imagenet_batch
 from pd_fusion_torch.ops.metrics import roc_auc
 from pd_fusion_torch.parallel.distributed import all_reduce, all_reduce_grads
@@ -408,6 +416,11 @@ class MilAttentionFineTuneModel(BaseModel):
             profiling.count("trainer:h2d_bytes", a.nbytes)
             return torch.as_tensor(a, device=self.device)
 
+    def _on_device(self, a):
+        """An item's array on the device: a host array copied (``_t``), a
+        device tensor (the noise, made on the device) taken as it is."""
+        return normal_draw.hand_over(a) if isinstance(a, torch.Tensor) else self._t(a)
+
     @staticmethod
     def _readback(t) -> np.ndarray:
         with profiling.span("trainer:readback", trace=False):  # waits for the device
@@ -445,7 +458,8 @@ class MilAttentionFineTuneModel(BaseModel):
 
     def _aug_params(self, B, L, h, w, rng, enabled: bool):
         """(angle [B], translate [B, 2] in pixels, scale [B], shift [B], noise
-        [B, L, h, w]) as float32, drawn in the JAX package's order."""
+        [B, L, h, w]) as float32, drawn in the JAX package's order; the noise
+        made on the device (on the CPU, numpy's own draw)."""
         with profiling.span("trainer:_aug_params"):
             if enabled:
                 angle = rng.uniform(-self.max_rotation, self.max_rotation, size=B)
@@ -453,12 +467,13 @@ class MilAttentionFineTuneModel(BaseModel):
                 translate = translate * np.array([h, w])
                 scale = 1.0 + rng.uniform(-self.intensity_scale, self.intensity_scale, size=B)
                 shift = rng.uniform(-self.intensity_shift, self.intensity_shift, size=B)
-                noise = (rng.normal(0.0, self.noise_std, size=(B, L, h, w)).astype(np.float32)
-                         if self.noise_std > 0 else np.zeros((B, L, h, w), np.float32))
             else:
                 angle, translate = np.zeros(B), np.zeros((B, 2))
                 scale, shift = np.ones(B), np.zeros(B)
-                noise = np.zeros((B, L, h, w), np.float32)
+            if enabled and self.noise_std > 0:
+                noise = normal_draw.normal(rng, self.noise_std, (B, L, h, w), self.device)
+            else:
+                noise = torch.zeros((B, L, h, w), device=self.device)
             return (np.float32(angle), np.float32(translate), np.float32(scale), np.float32(shift),
                     noise)
 
@@ -574,7 +589,7 @@ class MilAttentionFineTuneModel(BaseModel):
             gate = 1.0 if epoch >= self.freeze_backbone_epochs else 0.0
             with closing(_prepared_ahead(self._epoch_steps(bags, y, rng))) as steps:
                 for arrays in steps:
-                    batch = {k: self._t(a) for k, a in arrays.items()}
+                    batch = {k: self._on_device(a) for k, a in arrays.items()}
                     if dropout_keep_fn is not None:
                         bs, L_i = arrays["bag_mask"].shape
                         batch["keep"] = self._t(dropout_keep_fn(bs, L_i, hidden), bool)
@@ -633,7 +648,7 @@ class MilAttentionFineTuneModel(BaseModel):
                 if draw is None:
                     out[chunk] = self._readback(self._predict_chunk(Xt, mt))
                     continue
-                draw = [self._t(a) for a in draw]
+                draw = [self._on_device(a) for a in draw]
                 acc += self._readback(self._predict_chunk(augment(Xt, *draw), mt))
                 if k % passes == passes - 1:
                     out[chunk] = acc / self.tta_inference

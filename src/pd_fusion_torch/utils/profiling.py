@@ -25,14 +25,18 @@ One process-wide registry of spans and counters:
   counters the block recorded. Unset, it does nothing.
 
 The fine-tune's host loop (``models/mil_attention_finetune.py``) records
-the spans ``trainer:_aug_params`` (numpy draws, on the preparation thread),
-``trainer:_t`` (every host-to-device copy), ``step:ft_step`` (the host's
-enqueue of a step), ``trainer:_predict_chunk`` (of a predict pass),
+the spans ``trainer:_aug_params`` (the augmentation draws, on the
+preparation thread: numpy's small draws and the noise, drawn on the
+device), ``trainer:_t`` (every host-to-device copy), ``step:ft_step`` (the
+host's enqueue of a step), ``trainer:_predict_chunk`` (of a predict pass),
 ``trainer:readback`` (the read-back of a pass, no range) and
 ``trainer:prep_wait`` (the wait for the next prepared step or pass, no
 range), and the counters ``trainer:h2d_bytes``, ``trainer:steps``,
 ``trainer:passes`` and ``trainer:prep_ready`` (steps and passes that were
-prepared when asked for). Spans of two threads overlap in time, so their
+prepared when asked for); ``ops/normal_draw.py`` counts
+``trainer:noise_on_card`` (noise draws made by kernel K3) and
+``trainer:noise_raw`` (the generator's outputs those draws consumed, about
+1.022 a value). Spans of two threads overlap in time, so their
 shares of a window can sum past 1. ``torch.profiler`` sees the ranges of
 the thread that started it alone: the preparation thread's spans are in
 the registry and not in the trace. A span with a range that encloses

@@ -54,6 +54,7 @@ from pd_fusion_torch.imaging.nifti import read_nifti
 from pd_fusion_torch.nn.resnet import emb_dim, fold_bn_inference, params_to, resnet_apply_folded
 from pd_fusion_torch.ops.image import affine2d_subjects, resize3d, slices_to_imagenet_batch
 from pd_fusion_torch.parallel.distributed import gather_rows
+from pd_fusion_torch.utils import profiling
 from pd_fusion_torch.utils.device import get_device, make_data_mesh, shard_rows
 
 # Where the consume loop of the last run_resnet_embedding_pipeline call
@@ -61,7 +62,9 @@ from pd_fusion_torch.utils.device import get_device, make_data_mesh, shard_rows
 # prep not hidden), device_put_s (copying into pinned memory and issuing
 # the copies to the card), dispatch_s (issuing each flush's device work,
 # with the TTA draws), final_fetch_s (the one read-back, which also waits
-# for the last flush's device work).
+# for the last flush's device work). While tracing is on (``utils/profiling.py``)
+# the first two are also the spans ``embed:prep_wait`` and ``embed:staging``
+# (no range).
 LAST_PROFILE: dict = {}
 
 # Subjects per flush (device batch), chosen on an H100 (700 W) by the MIL
@@ -394,7 +397,8 @@ def run_resnet_embedding_pipeline(
 
         def flush():
             t0 = time.perf_counter()
-            slices = to_device.take()
+            with profiling.span("embed:staging", trace=False):
+                slices = to_device.take()
             t1 = time.perf_counter()
             prof["device_put_s"] += t1 - t0
             x = slices.to(torch.float32)
@@ -418,12 +422,14 @@ def run_resnet_embedding_pipeline(
         while True:
             t0 = time.perf_counter()
             try:
-                i, payload = next(it)
+                with profiling.span("embed:prep_wait", trace=False):
+                    i, payload = next(it)
             except StopIteration:
                 break
             t1 = time.perf_counter()
             prof["iter_wait_s"] += t1 - t0
-            to_device.add(payload)
+            with profiling.span("embed:staging", trace=False):
+                to_device.add(payload)
             prof["device_put_s"] += time.perf_counter() - t1
             batch_idx.append(i)
             if len(batch_idx) == B:

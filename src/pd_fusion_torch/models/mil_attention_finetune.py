@@ -2,7 +2,9 @@
 attention-pooling head, trained together (port of
 ``pd_fusion/models/mil_attention_finetune.py``). The backbone is
 ``backbone: resnet18`` or ``resnet50`` (``nn/resnet.py``, the JAX
-package's two) or ``swin_t`` (``nn/swin.py``, the port's own).
+package's two), ``swin_t`` (``nn/swin.py``) or ``maxvit_t``
+(``nn/maxvit.py``), the port's own (``_family``: each name's loader,
+train-mode forward and inference forward).
 
 Bags are NIfTI paths (or prepped slice arrays). Per bag: the native host
 prep (read, resize, 1-99% percentile normalize, multi-axis slice gather:
@@ -20,7 +22,8 @@ A ResNet's BN runs in train mode in every step, frozen or not: batch
 statistics over the ``B * L`` images of the batch minus the rows that pad
 a ragged final batch (``bn_mask`` = ``valid``; a ``None`` bag inside a
 batch counts as valid, and its zero slices enter the statistics, as in
-the JAX package), and the running statistics move by their EMA every step. The step
+the JAX package), and the running statistics move by their EMA every step; a
+MaxViT's BNs do the same. The step
 (``ft_step``) computes what the JAX package's ``_ft_update`` computes.
 While the gate is 0 the backbone runs outside autograd, so the backward
 pass stops at the head: the numbers are the same, and the backbone's Adam
@@ -79,16 +82,16 @@ import os
 from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import closing
-from typing import Callable, Dict, Iterator, Optional
+from typing import Callable, Dict, Iterator, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from pd_fusion_torch.imaging import native
 from pd_fusion_torch.models.base import BaseModel
-from pd_fusion_torch.nn import ft_optim
+from pd_fusion_torch.nn import ft_optim, maxvit, swin
 from pd_fusion_torch.nn import mil as mil_nn
-from pd_fusion_torch.nn import swin
+from pd_fusion_torch.nn.maxvit import maxvit_apply, maxvit_apply_train
 from pd_fusion_torch.nn.mil import mil_apply, mil_init
 from pd_fusion_torch.nn.resnet import (
     BN_STATS,
@@ -226,12 +229,44 @@ def ft_loss(logits, y, valid, loss_type, pos_weight, focal_gamma, focal_alpha, d
     return torch.sum(bce * torch.where(pos, pos_weight, 1.0) * valid) / denom
 
 
+class _Family(NamedTuple):
+    """A backbone family: ``load(arch, weights_path, seed, image_size) ->
+    (params, emb_dim, pretrained)``; ``train(params, x, arch,
+    sample_weight, group) -> (embeddings, params with the new running
+    statistics, or None for a backbone without them)``; ``apply(params, x,
+    arch) -> embeddings`` (inference). Each calls this module's names at
+    call time, so a wrapper put on them (the benchmark's spans) is taken."""
+    load: Callable
+    train: Callable
+    apply: Callable
+
+
+_RESNET = _Family(
+    lambda arch, path, seed, size: load_resnet(arch, weights_path=path, seed=seed),
+    lambda p, x, arch, w, group: resnet_apply_train(p, x, arch, sample_weight=w, group=group),
+    lambda p, x, arch: resnet_apply(p, x, arch))
+_SWIN = _Family(
+    lambda arch, path, seed, size: swin.load_backbone(arch, path, seed, size),
+    lambda p, x, arch, w, group: (swin_apply_train(p, x, arch), None),
+    lambda p, x, arch: swin_apply(p, x, arch))
+_MAXVIT = _Family(
+    lambda arch, path, seed, size: maxvit.load_backbone(arch, path, seed),
+    lambda p, x, arch, w, group: maxvit_apply_train(p, x, arch, sample_weight=w, group=group),
+    lambda p, x, arch: maxvit_apply(p, x, arch))
+
+
+def _family(arch) -> _Family:
+    if swin.is_swin(arch):
+        return _SWIN
+    if maxvit.is_maxvit(arch):
+        return _MAXVIT
+    return _RESNET
+
+
 def load_backbone(arch: str, weights_path=None, seed: int = 0, image_size: int = 224):
     """``arch``'s parameters (CPU tensors) from a checkpoint or the seeded
     init -> (params, emb_dim, pretrained)."""
-    if swin.is_swin(arch):
-        return swin.load_backbone(arch, weights_path, seed, image_size)
-    return load_resnet(arch, weights_path=weights_path, seed=seed)
+    return _family(arch).load(arch, weights_path, seed, image_size)
 
 
 def ft_forward(backbone, head, batch: Dict, hyper: Dict, generator=None,
@@ -254,12 +289,8 @@ def ft_forward(backbone, head, batch: Dict, hyper: Dict, generator=None,
                       batch["noise"])
         x = slices_to_imagenet_batch(aug.reshape(B * L, *aug.shape[2:]), hyper["input_size"],
                                      hyper["mean"], hyper["std"])
-        if swin.is_swin(hyper["arch"]):
-            emb, stats = swin_apply_train(backbone, x, hyper["arch"]), None
-        else:
-            emb, stats = resnet_apply_train(backbone, x, hyper["arch"],
-                                            sample_weight=batch["bn_mask"].reshape(B * L),
-                                            group=group)
+        emb, stats = _family(hyper["arch"]).train(backbone, x, hyper["arch"],
+                                                  batch["bn_mask"].reshape(B * L), group)
     logits = mil_apply(head, emb.reshape(B, L, -1), batch["bag_mask"], gated=hyper["gated"],
                        dropout_rate=hyper["head_dropout"], generator=generator,
                        dropout_keep=batch.get("keep"))
@@ -622,8 +653,8 @@ class MilAttentionFineTuneModel(BaseModel):
             B, L = X.shape[:2]
             x = slices_to_imagenet_batch(X.reshape(B * L, *X.shape[2:]), self.input_size,
                                          self._t(self.mean), self._t(self.std))
-            apply = swin_apply if swin.is_swin(self.backbone_name) else resnet_apply
-            emb = apply(self.backbone_params, x, self.backbone_name).reshape(B, L, -1)
+            emb = _family(self.backbone_name).apply(self.backbone_params, x,
+                                                    self.backbone_name).reshape(B, L, -1)
             return torch.sigmoid(mil_apply(self.head_params, emb, bag_mask, gated=self.gated))
 
     @torch.no_grad()

@@ -32,7 +32,11 @@ gradient of a 1x1 convolution is one product ``g @ w`` (stride 2: written
 into every second position), of a stride-1 one the forward convolution of
 ``g`` with the kernel flipped and its channel axes swapped, of a strided
 one ``stride^2`` such convolutions, one per phase of the input positions,
-each written into its own positions (``_data_grad``). Each is a cuBLAS
+each written into its own positions (``_data_grad``); a depthwise
+convolution's (``groups`` = its channels, MaxViT's) weight gradient is
+taken tap by tap, a product and a fixed-order sum each
+(``_depthwise_weight_grad``), and its data gradients are
+depthwise forward convolutions of the same forms. Each is a cuBLAS
 product or a cuDNN forward convolution, neither of which adds with
 atomics, so the step gives the same bits on every run; at the fine-tune's
 width it is also faster than cuDNN's backward (PERF.md). The stem's input
@@ -61,12 +65,16 @@ statistics are a functional output: ``merge_bn_stats`` grafts them onto an
 optimizer's output, and ``bn_buffer_mask`` marks the leaves that weight
 decay may touch.
 
-A training forward keeps its activations for the backward pass, in both
-backbones (``nn/swin.py`` follows this rule). The JAX package wraps each
-block in ``jax.checkpoint``; the port does not rematerialize: its forward
-is deterministic, so a recompute would give the backward the same bits it
-keeps, and the fine-tune's unfrozen step (256 images of 224^2) peaks at
-22.8 GB on ResNet-50, within one 80 GB card (PERF.md).
+The memory rule of every backbone: a training forward keeps its
+activations for the backward pass, unless the step does not fit on one
+card. The JAX package wraps each block in ``jax.checkpoint``; the port's
+ResNets do not rematerialize: the forward is deterministic, so a
+recompute would give the backward the same bits it keeps, and the
+fine-tune's unfrozen step (256 images of 224^2) peaks at 22.8 GB on
+ResNet-50 and 28.6 GB on Swin-T (``nn/swin.py``), within one 80 GB card.
+MaxViT-T's would keep 94 GB, so each of its MBConvs is recomputed in the
+backward (``nn/maxvit.py``, its running statistics moved once): its step
+peaks at 38.9 GB (PERF.md).
 
 Data-parallel training (``resnet_apply_train(group=)``, one process per
 card): every BN takes the statistics of the whole group's batch, in torch
@@ -108,16 +116,17 @@ def _n_convs(arch: str) -> int:
     return 2 if _CONFIGS[arch]["block"] == "basic" else 3
 
 
-def _conv(x, w, b=None, stride=1, padding=None):
+def _conv(x, w, b=None, stride=1, padding=None, groups=1):
     """Conv with torch's symmetric ``k // 2`` padding; the input is cast to
     the weights' dtype (bfloat16 activations under bfloat16 weights). Under
-    autograd its gradients are the port's own (``_Conv2d``)."""
+    autograd its gradients are the port's own (``_Conv2d``). ``groups``: 1,
+    or the input's channels (a depthwise convolution)."""
     if padding is None:
         padding = w.shape[2] // 2
     x = x.to(w.dtype)
     if torch.is_grad_enabled() and (w.requires_grad or x.requires_grad):
-        return _Conv2d.apply(x, w, b, stride, padding)
-    return F.conv2d(x, w, b, stride=stride, padding=padding)
+        return _Conv2d.apply(x, w, b, stride, padding, groups)
+    return F.conv2d(x, w, b, stride=stride, padding=padding, groups=groups)
 
 
 def _nhwc(t):
@@ -168,27 +177,29 @@ def _phase(r, k, s, p, n_in, n_out):
     return i0, taps, before, count + taps - 1 - n_out - before, count
 
 
-def _data_grad(g, w, stride, padding, in_hw):
-    """The input gradient of ``conv2d(x, w, stride, padding)`` from the
-    output gradient ``g``, written out: a 1x1 conv's is one product ``g @
-    w`` (stride 2: written into every second position of a zero tensor); a
-    stride-1 conv's is the forward conv of ``g`` with the kernel flipped in
-    space and its channel axes swapped; a strided one's splits into
-    ``stride^2`` such convs on the output grid, one per phase of the input
-    positions, each written into its own positions (a copy, not an add)."""
+def _data_grad(g, w, stride, padding, in_hw, groups=1):
+    """The input gradient of ``conv2d(x, w, stride, padding, groups)`` from
+    the output gradient ``g``, written out: a 1x1 conv's is one product ``g
+    @ w`` (stride 2: written into every second position of a zero tensor);
+    a stride-1 conv's is the forward conv of ``g`` with the kernel flipped
+    in space and its channel axes swapped (a depthwise kernel's, one
+    channel each, need no swap); a strided one's splits into ``stride^2``
+    such convs on the output grid, one per phase of the input positions,
+    each written into its own positions (a copy, not an add)."""
     N, O, Ho, Wo = g.shape
     C, kh, kw = w.shape[1:]
+    C *= groups
     s, p = stride, padding
-    if kh == kw == 1 and p == 0:
+    if kh == kw == 1 and p == 0 and groups == 1:
         y = (_nhwc(g).reshape(-1, O) @ w.reshape(O, C)).view(N, Ho, Wo, C)
         if s == 1:
             return y.permute(0, 3, 1, 2)
         gx = g.new_zeros(N, *in_hw, C)
         gx[:, ::s, ::s] = y
         return gx.permute(0, 3, 1, 2)
-    wt = w.transpose(0, 1)
+    wt = w.transpose(0, 1) if groups == 1 else w
     if s == 1 and p < min(kh, kw):
-        return F.conv2d(g, wt.flip((2, 3)), padding=(kh - 1 - p, kw - 1 - p))
+        return F.conv2d(g, wt.flip((2, 3)), padding=(kh - 1 - p, kw - 1 - p), groups=groups)
     gx = g.new_zeros(N, *in_hw, C).permute(0, 3, 1, 2)
     for rh in range(s):
         ih, th, bh, ah, ch = _phase(rh, kh, s, p, in_hw[0], Ho)
@@ -201,7 +212,7 @@ def _data_grad(g, w, stride, padding, in_hw):
             else:
                 gp, pad = F.pad(g, (bw, aw, bh, ah)), 0
             gx[:, :, rh::s, rw::s] = F.conv2d(gp, wt[:, :, ih::s, iw::s].flip((2, 3)),
-                                              padding=pad)
+                                              padding=pad, groups=groups)
     return gx
 
 
@@ -210,29 +221,52 @@ class _Conv2d(torch.autograd.Function):
     every run on the card where cuDNN's backward kernels add with atomics:
     forward by cuDNN; data gradient ``_data_grad``; weight gradient the
     products of the output gradient with the input's windows
-    (``_patches``, ``_outer_sum``)."""
+    (``_patches``, ``_outer_sum``), or a depthwise kernel's tap by tap
+    (``_depthwise_weight_grad``)."""
 
     @staticmethod
-    def forward(ctx, x, w, b, stride, padding):
+    def forward(ctx, x, w, b, stride, padding, groups=1):
         ctx.save_for_backward(x, w)
-        ctx.stride, ctx.padding = stride, padding
-        return F.conv2d(x, w, b, stride=stride, padding=padding)
+        ctx.stride, ctx.padding, ctx.groups = stride, padding, groups
+        return F.conv2d(x, w, b, stride=stride, padding=padding, groups=groups)
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        return (*conv2d_grads(g, x, w, ctx.stride, ctx.padding, ctx.needs_input_grad[:3]),
-                None, None)
+        return (*conv2d_grads(g, x, w, ctx.stride, ctx.padding, ctx.needs_input_grad[:3],
+                              ctx.groups), None, None, None)
 
 
-def conv2d_grads(g, x, w, stride, padding, needs):
+def _depthwise_weight_grad(g, x, w, stride, padding):
+    """The weight gradient of a depthwise ``conv2d`` (``w`` [C, 1, kh, kw]),
+    tap by tap: ``gw[c, 0, i, j] = sum over (n, y, x) of g[n, c, y, x] *
+    xpad[n, c, s * y + i, s * x + j]``, each a product and a ``torch.sum``
+    over a fixed order (no im2col: at a MaxViT stage 1 shape it would be
+    7.4 GB)."""
+    N, C, Ho, Wo = g.shape
+    kh, kw, s = w.shape[2], w.shape[3], stride
+    xp = F.pad(x, (padding,) * 4) if padding else x
+    gw = g.new_empty(C, kh * kw)
+    for i in range(kh):
+        for j in range(kw):
+            tap = xp[:, :, i:i + s * (Ho - 1) + 1:s, j:j + s * (Wo - 1) + 1:s]
+            gw[:, i * kw + j] = torch.sum(g * tap, dim=(0, 2, 3))
+    return gw.view(C, 1, kh, kw)
+
+
+def conv2d_grads(g, x, w, stride, padding, needs, groups=1):
     """(input, weight, bias) gradients of ``conv2d(x, w, b, stride,
-    padding)`` from the output gradient ``g``; ``None`` where ``needs`` is
-    false."""
+    padding, groups)`` from the output gradient ``g``; ``None`` where
+    ``needs`` is false. ``groups``: 1, or the channels (depthwise)."""
     N, O, Ho, Wo = g.shape
-    gx = _data_grad(g, w, stride, padding, x.shape[2:]) if needs[0] else None
+    if groups != 1 and not (groups == x.shape[1] == O and w.shape[1] == 1):
+        raise ValueError(f"conv2d_grads: groups must be 1 or depthwise; got {groups} for "
+                         f"{tuple(x.shape)} -> {tuple(g.shape)}")
+    gx = _data_grad(g, w, stride, padding, x.shape[2:], groups) if needs[0] else None
     gw = gb = None
-    if needs[1]:
+    if needs[1] and groups != 1:
+        gw = _depthwise_weight_grad(g, x, w, stride, padding)
+    elif needs[1]:
         cols = _patches(x, w.shape[2], w.shape[3], stride, padding, (Ho, Wo))
         gw = _outer_sum(_nhwc(g).reshape(N, Ho * Wo, O), cols)
         gw = gw.view(O, w.shape[2], w.shape[3], w.shape[1]).permute(0, 3, 1, 2).contiguous()

@@ -57,9 +57,14 @@ Host spans and counters (``utils/profiling.py``): each block's partition,
 attention and reverse, its shift included, run in span
 ``backbone:window_attention`` (no range: it encloses device work and is no
 function the benchmark wraps), and counter ``backbone:windows`` adds the
-window attentions each block runs, images times windows.
+window attentions each block runs, images times windows. ``_block`` takes
+the partition as an argument (``Partition``: how the map is cut into
+groups of M^2 tokens and joined again, and the span and counter it runs
+in), Swin's windows by default; MaxViT's block attention is the same
+unshifted block, and its grid attention another partition
+(``nn/maxvit.py``).
 """
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -320,22 +325,36 @@ def window_attention(q, k, v, table, window: int, mask=None):
     return torch.softmax(s, dim=-1) @ v
 
 
-def _block(x, p, heads: int, window: int, shift: int, mask):
-    """One Swin block on [n, H, W, C] (``shift`` 0: W-MSA, else SW-MSA)."""
+class Partition(NamedTuple):
+    """How a block cuts its map into groups of M^2 tokens that attend to one
+    another, and the host span and counter its attention runs in."""
+    cut: Callable  # ([n, H, W, C], M) -> [n * G, M^2, C]
+    join: Callable  # ([n * G, M^2, C], M, n, H, W) -> [n, H, W, C]
+    span: str
+    counter: str
+
+
+WINDOWS = Partition(_partition, _reverse, "backbone:window_attention", "backbone:windows")
+
+
+def _block(x, p, heads: int, window: int, shift: int, mask, part: Partition = WINDOWS):
+    """One Swin block on [n, H, W, C] (``shift`` 0: W-MSA, else SW-MSA).
+    ``part``: the partition into groups of ``window``^2 tokens, Swin's
+    windows unless another is given (MaxViT's grid, ``nn/maxvit.py``)."""
     n, H, W, C = x.shape
     h = _ln(x, p["norm1"])
-    with profiling.span("backbone:window_attention", trace=False):
+    with profiling.span(part.span, trace=False):
         if shift:
             h = torch.roll(h, (-shift, -shift), (1, 2))
-        win = _partition(h, window)
+        win = part.cut(h, window)
         B_, N = win.shape[:2]
-        profiling.count("backbone:windows", B_)
+        profiling.count(part.counter, B_)
         qkv = _linear(win, p["attn"]["qkv"]).view(B_, N, 3, heads, C // heads)
         qkv = qkv.permute(2, 0, 3, 1, 4)
         o = window_attention(qkv[0], qkv[1], qkv[2], p["attn"]["relative_position_bias_table"],
                              window, mask)
         h = _linear(o.transpose(1, 2).reshape(B_, N, C), p["attn"]["proj"])
-        h = _reverse(h, window, n, H, W)
+        h = part.join(h, window, n, H, W)
         if shift:
             h = torch.roll(h, (shift, shift), (1, 2))
     x = x + h

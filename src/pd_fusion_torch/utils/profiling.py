@@ -36,7 +36,17 @@ range), and the counters ``trainer:h2d_bytes``, ``trainer:steps``,
 prepared when asked for); ``ops/normal_draw.py`` counts
 ``trainer:noise_on_card`` (noise draws made by kernel K3) and
 ``trainer:noise_raw`` (the generator's outputs those draws consumed, about
-1.022 a value). Spans of two threads overlap in time, so their
+1.022 a value). The backbones record, with no range: Swin's and MaxViT's
+block attention ``backbone:window_attention`` (counter
+``backbone:windows``), MaxViT's grid attention ``backbone:grid_attention``
+(counter ``backbone:grid_windows``) and MBConvs ``backbone:mbconv``
+(counter ``backbone:recomputed``, the MBConvs run again in a backward);
+the fused BN counts ``backbone:bn_kernel`` / ``backbone:bn_plain``. The
+embed build (``imaging/pipeline.py``) records, with no range,
+``embed:prep_wait`` (its consume loop blocked on the prefetch threads'
+host preparation) and ``embed:staging`` (the copies into pinned memory and
+the issue of each flush's copy to the card). Spans
+of two threads overlap in time, so their
 shares of a window can sum past 1. ``torch.profiler`` sees the ranges of
 the thread that started it alone: the preparation thread's spans are in
 the registry and not in the trace. A span with a range that encloses

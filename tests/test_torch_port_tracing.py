@@ -207,6 +207,40 @@ def test_maybe_profile_writes_the_blocks_spans_beside_its_trace(tmp_path, monkey
         assert snap["counters"] == {"a:n": 2}
 
 
+def test_the_embed_build_records_its_prep_wait_and_staging(tmp_path):
+    """The embed build's consume loop: one ``embed:prep_wait`` a subject and
+    the end of the prefetch, one ``embed:staging`` a subject and a flush,
+    neither in the profiler's trace; the same embeddings traced or not."""
+    from benchmark.drives.embed import write_nifti
+    from pd_fusion_torch.imaging import pipeline
+    from pd_fusion_torch.nn.resnet import init_resnet
+
+    rng = np.random.default_rng(0)
+    paths = []
+    for i in range(3):
+        vol = rng.random((18, 20, 16), dtype=np.float32) * 0.3
+        vol[3:15, 3:17, 3:13] += 0.5
+        paths.append(tmp_path / f"sub-{i}_T1w.nii.gz")
+        write_nifti(paths[-1], (vol * 1000).astype(np.int16), 1)
+    bp = init_resnet(torch.Generator().manual_seed(0), "resnet18")
+
+    def build():
+        return np.stack(pipeline.run_resnet_embedding_pipeline(
+            [str(p) for p in paths], ["a", "b", "c"], bp, [0.5] * 3, [0.5] * 3,
+            arch="resnet18", target_shape=(16, 16, 16), axes=[2], counts=[4], input_size=32,
+            progress=False, device="cpu", subjects_per_call=2))
+
+    plain = build()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        traced = build()
+    spans = profiling.snapshot()["spans"]
+    assert spans["embed:prep_wait"]["count"] == 3 + 1
+    assert spans["embed:staging"]["count"] == 3 + 2
+    assert not {"embed:prep_wait", "embed:staging"} & {
+        e.name() for e in prof.profiler.kineto_results.events()}
+    np.testing.assert_array_equal(plain, traced)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
